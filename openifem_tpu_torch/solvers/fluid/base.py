@@ -1,0 +1,323 @@
+"""Fluid solver base: Taylor-Hood spaces, BCs, stress projection.
+
+Counterpart of openifem_tpu/solvers/fluid/base.py (reference:
+include/fluid_solver.h:63-171, source/fluid_solver.cpp).  Global dof
+vector = [u (node-major, component fastest), p]; deal.II's block
+renumbering becomes two index ranges of one flat vector.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ...config import device as _default_device
+from ...config import real_dtype
+from ...fe.fevalues import cell_values, face_values
+from ...fe.shapes import gauss_quadrature
+from ...fe.space import FESpace, SystemSpace
+from ...la.constraints import Constraints
+from ...parameters import (AllParameters, component_flag_to_mask,
+                           component_flag_values)
+from ...utils.timectl import Time
+
+
+class FluidSolverBase:
+    # Newton-target-aware forcing for the outer FGMRES (see the JAX
+    # package, openifem_tpu/solvers/fluid/base.py).  None keeps the
+    # reference-parity tolerance atol = max(1e-8 ||rhs||, 1e-10); a pair
+    # (eta, theta) solves each Newton system only to
+    #   atol = max(eta * ||r_k||, theta * fluid_tolerance * ||r_0||)
+    # and skips the solve of an already converged iterate.
+    newton_forcing = None
+    # run the outer FGMRES in f32 (combine with f32_matrix); the f64
+    # assembled residual still gates Newton convergence, and the solve
+    # tolerance is clamped to the f32-achievable floor
+    f32_outer = False
+    f32_outer_floor = 2e-6
+
+    def _outer_solve(self, op, b, precond, atol):
+        """Dispatch the outer FGMRES, optionally with an f32 Krylov basis
+        (f32_outer).  Returns (x_in_b_dtype, iters, residual)."""
+        from ...la.krylov import fgmres
+        if self.f32_outer:
+            atol = max(float(atol), self.f32_outer_floor *
+                       torch.linalg.vector_norm(b).item())
+            op32 = lambda x: op(x).to(torch.float32)  # noqa: E731
+            res = fgmres(op32, b.to(torch.float32), M=precond, atol=atol,
+                         restart=self.outer_restart,
+                         max_restarts=self.outer_max_restarts)
+            return res.x.to(b.dtype), res.iters, res.residual
+        res = fgmres(op, b, M=precond, atol=atol,
+                     restart=self.outer_restart,
+                     max_restarts=self.outer_max_restarts)
+        return res.x, res.iters, res.residual
+
+    def _outer_atol(self, res_norm: float, res0, parity_atol: float):
+        """Outer-FGMRES absolute tolerance for one Newton iteration.
+        res0: the step's initial nonlinear residual, or None / non-finite
+        when unknown (first iteration of a step)."""
+        if self.newton_forcing is None:
+            return parity_atol
+        eta, theta = self.newton_forcing
+        tol = self.params.fluid_tolerance
+        r0 = res_norm if res0 is None or not math.isfinite(res0) else res0
+        atol = max(eta * res_norm, theta * tol * r0, 1e-10)
+        if res_norm <= max(tol * r0, 1e-11):
+            return math.inf
+        return atol
+
+    def __init__(self, mesh, params: AllParameters,
+                 bc: Optional[Callable] = None, device=None):
+        """bc: hard-coded boundary-value function f(points (n,dim), component)
+        -> (n,) used when params.use_hard_coded_values (reference:
+        source/fluid_solver.cpp:132-143).  device: torch device of the
+        solver state (default config.device())."""
+        self.mesh = mesh
+        self.params = params
+        self.dim = mesh.dim
+        self.boundary_values = bc
+        self.device = torch.device(device) if device is not None else \
+            _default_device()
+        self.time = Time(params.end_time, params.time_step,
+                         params.output_interval, params.refinement_interval,
+                         params.save_interval)
+        from ...utils.timer import Timer
+        self.timer = Timer(type(self).__name__)
+        self._setup_done = False
+        self.body_force = None          # set_body_force analog
+        # time-dependent hard-coded BCs: bid -> fn(points, component, time)
+        self.hard_coded_bcs = {}
+        self.bc_time = 0.0
+
+    def _tensor(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), device=self.device,
+                               dtype=dtype if dtype is not None
+                               else real_dtype())
+
+    def add_hard_coded_boundary_condition(self, bid: int, fn):
+        self.hard_coded_bcs[bid] = fn
+
+    def set_body_force(self, fn: Callable):
+        """fn(points (n,dim)) -> (n,dim) body acceleration."""
+        self.body_force = fn
+
+    # ------------------------------------------------------------------
+    def setup(self):
+        params, mesh = self.params, self.mesh
+        dim = self.dim
+        vdeg = params.fluid_velocity_degree
+        pdeg = params.fluid_pressure_degree
+        self.u_space = FESpace(mesh, vdeg)
+        self.p_space = FESpace(mesh, pdeg)
+        self.sys = SystemSpace([(self.u_space, dim), (self.p_space, 1)])
+        self.n_dofs = self.sys.n_dofs
+        self.n_u = self.u_space.n_nodes * dim
+        self.n_p = self.p_space.n_nodes
+
+        nq = vdeg + 1
+        self.cv_u = cell_values(self.u_space, nq)
+        self.cv_p = cell_values(self.p_space, nq)
+        self.fv_u = face_values(self.u_space, nq)
+
+        self._make_constraints()
+        self._setup_stress_projection()
+
+        rdt, dev = real_dtype(), self.device
+        self.present_solution = torch.zeros(self.n_dofs, dtype=rdt,
+                                            device=dev)
+        self.solution_increment = torch.zeros_like(self.present_solution)
+
+        n_c = mesh.n_cells
+        self.indicator = torch.zeros(n_c, dtype=rdt, device=dev)
+        self.fsi_acceleration = torch.zeros((n_c, dim), dtype=rdt,
+                                            device=dev)
+        self.fsi_stress_cell = torch.zeros((n_c, dim, dim), dtype=rdt,
+                                           device=dev)
+        self.fsi_acc_nodal = torch.zeros((self.u_space.n_nodes, dim),
+                                         dtype=rdt, device=dev)
+        # nodal viscous stress, device-resident (n_scalar_nodes, dim, dim)
+        self.stress_device = torch.zeros((self.u_space.n_nodes, dim, dim),
+                                         dtype=rdt, device=dev)
+        self._setup_done = True
+
+    # ------------------------------------------------------------------
+    def _make_constraints(self):
+        """Dirichlet constraint masks + values on the velocity block
+        (reference: source/fluid_solver.cpp:66-163)."""
+        params, dim = self.params, self.dim
+        dmask = np.zeros(self.n_dofs, dtype=bool)
+        dvals = np.zeros(self.n_dofs)
+        bmap = self.u_space.boundary_node_map()
+        # deal.II's AffineConstraints keeps the FIRST constraint added for a
+        # dof; boundaries are processed in ascending id order, so at corner
+        # nodes the lower boundary id wins.
+        for bid in sorted(params.fluid_dirichlet_bcs):
+            flag, vals = params.fluid_dirichlet_bcs[bid]
+            if bid not in bmap:
+                continue
+            nodes = bmap[bid]
+            mask = component_flag_to_mask(flag, dim)
+            per_axis = component_flag_values(flag, vals, dim)
+            pts = self.u_space.node_points[nodes]
+            for d in range(dim):
+                if not mask[d]:
+                    continue
+                gd = nodes * dim + d
+                fresh = ~dmask[gd]
+                if params.use_hard_coded_values and bid in self.hard_coded_bcs:
+                    v = np.asarray(self.hard_coded_bcs[bid](pts, d,
+                                                            self.bc_time))
+                elif params.use_hard_coded_values and \
+                        self.boundary_values is not None:
+                    v = np.asarray(self.boundary_values(pts, d))
+                else:
+                    v = np.full(len(nodes), per_axis[d])
+                dvals[gd[fresh]] = v[fresh]
+                dmask[gd] = True
+        dev = self.device
+        hidx, hw, hmask = self.sys.hanging_tables()
+        self.zero_constraints = Constraints(self.n_dofs, hidx, hw, hmask,
+                                            dirichlet_mask=dmask, device=dev)
+        self.nonzero_constraints = Constraints(
+            self.n_dofs, hidx, hw, hmask, dirichlet_mask=dmask,
+            dirichlet_values=dvals, device=dev)
+        # per-block constraints for the Schur preconditioner sub-operators
+        usys = SystemSpace([(self.u_space, self.dim)])
+        uh_idx, uh_w, uh_mask = usys.hanging_tables()
+        self.u_constraints = Constraints(self.n_u, uh_idx, uh_w, uh_mask,
+                                         dirichlet_mask=dmask[:self.n_u],
+                                         device=dev)
+        psys = SystemSpace([(self.p_space, 1)])
+        ph_idx, ph_w, ph_mask = psys.hanging_tables()
+        self.p_constraints = Constraints(self.n_p, ph_idx, ph_w, ph_mask,
+                                         device=dev)
+
+    def _u_cons_of(self, cons):
+        """Velocity-block constraints matching a (possibly FSI-extended)
+        full-vector constraint set."""
+        if cons is self.zero_constraints:
+            return self.u_constraints
+        return self.u_constraints.with_extra_dirichlet(
+            cons.dirichlet[:self.n_u],
+            torch.zeros(self.n_u, dtype=real_dtype(), device=self.device))
+
+    # ------------------------------------------------------------------
+    def _setup_stress_projection(self):
+        k = self.params.fluid_velocity_degree
+        qp, qw = gauss_quadrature(k + 1, self.dim)
+        N, _ = self.u_space.shapes.evaluate(qp)
+        Mref = np.einsum("qi,qj,q->ij", N, N, qw)
+        Q = (N * qw[:, None]).T
+        self.qpt_to_dof = np.linalg.solve(Mref, Q)
+        counts = np.zeros(self.u_space.n_nodes)
+        np.add.at(counts, self.u_space.cell_dofs.ravel(), 1.0)
+        self._scalar_counts = counts
+        self._qpt_to_dof_t = self._tensor(self.qpt_to_dof)
+        self._scalar_counts_t = self._tensor(counts)
+        self._u_cell_nodes = self._tensor(self.u_space.cell_dofs,
+                                          torch.int64)
+        self._cv_u_grad = self._tensor(self.cv_u.grad)
+
+    def velocity_gradients(self, solution):
+        """(n_c, n_q, dim, dim) velocity gradients at volume q points."""
+        d = self.dim
+        ul = solution[:self.n_u].reshape(-1, d)[self._u_cell_nodes]
+        return torch.einsum("cqlx,cla->cqax", self._cv_u_grad, ul)
+
+    def _update_stress_impl(self, solution):
+        mu = self.params.viscosity
+        gradv = self.velocity_gradients(solution)
+        tau = mu * (gradv + gradv.transpose(2, 3))
+        # project each component
+        cellwise = torch.einsum("iq,cqab->ciab", self._qpt_to_dof_t, tau)
+        d = self.dim
+        out = torch.zeros((self.u_space.n_nodes, d, d), dtype=tau.dtype,
+                          device=tau.device)
+        out.index_add_(0, self._u_cell_nodes.reshape(-1),
+                       cellwise.reshape(-1, d, d))
+        return out / self._scalar_counts_t[:, None, None]
+
+    def update_stress(self):
+        """Nodal viscous stress tau = 2 mu grad^s(v), projected
+        quadrature->nodes and averaged (reference:
+        source/fluid_solver.cpp:324-414)."""
+        self.stress_device = self._update_stress_impl(self.present_solution)
+
+    @property
+    def stress(self):
+        return self.stress_device.cpu().numpy().transpose(1, 2, 0)
+
+    def get_current_solution(self):
+        return self.present_solution
+
+    # ------------------------------------------------------------------
+    def refine_mesh(self, min_level: int, max_level: int,
+                    verbose: bool = False):
+        raise NotImplementedError(
+            "fluid AMR is not ported yet (ROADMAP.md queue 1: AMR and "
+            "checkpoints)")
+
+    def save_checkpoint(self, step: Optional[int] = None,
+                        prefix: str = "fluid"):
+        raise NotImplementedError(
+            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
+            "checkpoints)")
+
+    def load_checkpoint(self, prefix: str = "fluid") -> bool:
+        raise NotImplementedError(
+            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
+            "checkpoints)")
+
+    def output_results(self, step: Optional[int] = None,
+                       prefix: str = "fluid"):
+        """VTU output with velocity/pressure/indicator/stress
+        (reference: source/mpi_fluid_solver.cpp:490-579)."""
+        from ...io.vtk import write_vtu
+        from ...utils.pvd import PVDWriter
+        if step is None:
+            step = self.time.get_timestep()
+        n_vert = self.mesh.n_vertices
+        d = self.dim
+        u = self.velocity_part().reshape(-1, d)
+        p = self.pressure_part()
+        tau = self.stress_device.cpu().numpy()
+        point_data = {"velocity": u[:n_vert], "pressure": p[:n_vert]}
+        for i in range(d):
+            for j in range(i, d):
+                point_data[f"tau_{i}{j}"] = tau[:n_vert, i, j]
+        fsi_acc = self.fsi_acc_nodal.cpu().numpy()
+        if np.any(fsi_acc):
+            point_data["fsi_force"] = fsi_acc[:n_vert]
+        write_vtu(f"{prefix}-{step:06d}.vtu", self.mesh,
+                  point_data=point_data,
+                  cell_data={"indicator": self.indicator.cpu().numpy()})
+        if not hasattr(self, "_pvd"):
+            self._pvd = PVDWriter(self.time, f"{prefix}.pvd")
+        self._pvd.write_current_timestep(f"{prefix}-", 6)
+
+    def _end_of_step_io(self, refine_levels=None):
+        """run_one_step epilogue (reference: source/mpi_insim.cpp:475-489):
+        VTU/PVD output at `time_to_output`, and - standalone runs only -
+        checkpoint at `time_to_save` and Kelly AMR at `time_to_refine`."""
+        standalone = self.params.simulation_type == "Fluid"
+        if standalone and self.time.time_to_save():
+            self.save_checkpoint()
+        if self.time.time_to_output():
+            self.output_results()
+        if standalone and self.time.time_to_refine():
+            if refine_levels is None:
+                gr = self.params.global_refinements[0]
+                refine_levels = (gr, gr + 3)
+            self.refine_mesh(*refine_levels)
+
+    def velocity_part(self, solution=None):
+        s = self.present_solution if solution is None else solution
+        return s[:self.n_u].cpu().numpy()
+
+    def pressure_part(self, solution=None):
+        s = self.present_solution if solution is None else solution
+        return s[self.n_u:].cpu().numpy()
