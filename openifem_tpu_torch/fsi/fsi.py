@@ -39,14 +39,20 @@ class FSI:
         self.time = Time(params.end_time, params.time_step,
                          params.output_interval, params.refinement_interval,
                          params.save_interval)
-        # nested coarse meshes for a fluid pressure V-cycle (not ported)
+        # optional nested coarse-mesh list (coarsest first, all
+        # geometrically nested under the fluid mesh) for the fluid pressure
+        # V-cycle; when set, the hierarchy [bases..., fluid mesh] is
+        # attached after the fluid's setup
         self.fluid_mg_base = None
 
     def _enable_fluid_mg(self):
-        if self.fluid_mg_base:
-            raise NotImplementedError(
-                "fluid multigrid is not ported yet (ROADMAP.md queue 1, "
-                "item 2)")
+        fl = self.fluid
+        if (self.fluid_mg_base and hasattr(fl, "enable_pressure_mg")
+                and fl.params.fluid_pressure_degree == 1):
+            bases = [m for m in self.fluid_mg_base
+                     if m.n_cells < fl.mesh.n_cells]
+            if bases:
+                fl.enable_pressure_mg(bases + [fl.mesh], fixed_prefix=False)
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(a, device=self.device,

@@ -8,9 +8,10 @@ an edited kernel is rebuilt.  Nothing CUDA-specific happens at import.
 
 `launch` is the only place the kernel runs.  It checks what it is given,
 allocates the zero-filled output, launches on PyTorch's current stream,
-raises if cudaGetLastError() is not 0, and counts the launch under its
-layout name in `launches`.  la/operators.py calls it for CUDA tensors;
-there is no fallback to the plain version.
+raises if cudaGetLastError() is not 0, and counts the launch in
+`launches` under (layout, dtype name, number of cells), so that a caller
+can tell which shapes a run launched.  la/operators.py calls it for CUDA
+tensors; there is no fallback to the plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 
 import torch
 
@@ -39,8 +41,8 @@ _SMEM_LIMIT = 48 * 1024
 LAYOUTS = ("element_matvec", "element_matvec_rect",
            "element_matvec_nodeblock", "element_matvec_u_to_p_nodeblock",
            "element_matvec_p_to_u_nodeblock", "element_matvec_taylor_hood")
-# launches of the kernel, per layout
-launches = {name: 0 for name in LAYOUTS}
+# launches of the kernel, per (layout, dtype name, number of cells)
+launches = Counter()
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -48,8 +50,7 @@ build_seconds = None
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    launches.clear()
 
 
 def _nvcc():
@@ -132,7 +133,7 @@ def launch(layout: str, A, cell_stride: int, row_stride: int, rows, cols,
 
     A: a tensor whose storage holds each cell's (nr, nc) block at
     A.data_ptr() + c*cell_stride + i*row_stride + k (in elements)."""
-    if layout not in launches:
+    if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout}")
     if not x.is_cuda:
         raise ValueError("the CUDA element matvec takes CUDA tensors only")
@@ -172,5 +173,5 @@ def launch(layout: str, A, cell_stride: int, row_stride: int, rows, cols,
     if rc != 0:
         raise RuntimeError(f"element-matvec kernel launch failed "
                            f"({layout}): cudaError {rc}")
-    launches[layout] += 1
+    launches[(layout, str(x.dtype).replace("torch.", ""), n_c)] += 1
     return y

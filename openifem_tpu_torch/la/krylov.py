@@ -33,32 +33,54 @@ def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
+def _weighted(weight, dtype):
+    """Flat weight vector in `dtype`, or None for the plain inner product."""
+    return None if weight is None else weight.to(dtype).reshape(-1)
+
+
+def _wnorm(v, w):
+    """sqrt(<v, w v>), or the 2-norm when w is None."""
+    if w is None:
+        return torch.linalg.vector_norm(v)
+    v = v.reshape(-1)
+    return torch.sqrt(torch.dot(v, w * v))
+
+
 def cg(op: Callable, b, x0=None, M: Optional[Callable] = None,
-       atol=1e-10, maxiter: int = 1000) -> SolveResult:
-    """Preconditioned conjugate gradients; stops when ||r|| <= atol."""
+       atol=1e-10, maxiter: int = 1000, weight=None) -> SolveResult:
+    """Preconditioned conjugate gradients; stops when ||r|| <= atol.
+
+    weight: optional nonnegative vector defining a weighted inner product
+    <a, b> = sum(w * a * b).  The structured-patch stencil layout
+    (la/stencil.py) stores shared nodes once per incident patch; ownership
+    weights (1 owned / 0 duplicate) make the duplicated solve exactly
+    equivalent to the flat one."""
     x = torch.zeros_like(b) if x0 is None else x0
     if M is None:
         M = lambda v: v  # noqa: E731
+    w = _weighted(weight, b.dtype)
+    dot = _dot if w is None else \
+        (lambda a, c: _dot(a, w * c.reshape(-1)))  # noqa: E731
     atol = torch.as_tensor(atol, dtype=b.dtype, device=b.device)
 
     r = b - op(x)
     z = M(r)
     p = z
-    rz = _dot(r, z)
+    rz = dot(r, z)
     k = 0
-    while k < maxiter and bool(torch.sqrt(_dot(r, r)) > atol):
+    while k < maxiter and bool(torch.sqrt(dot(r, r)) > atol):
         Ap = op(p)
-        pAp = _dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = torch.where(pAp != 0, rz / pAp, 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = torch.where(rz != 0, rz_new / rz, 0.0)
         p = z + beta * p
         rz = rz_new
         k += 1
-    return SolveResult(x=x, iters=k, residual=float(torch.sqrt(_dot(r, r))))
+    return SolveResult(x=x, iters=k, residual=float(torch.sqrt(dot(r, r))))
 
 
 def _back_substitute(H, g, k):
@@ -69,11 +91,16 @@ def _back_substitute(H, g, k):
     return y
 
 
-def _fgmres_cycle(op, M, x0, b, atol, restart: int):
-    """One FGMRES(restart) cycle.  Returns (x, resnorm, iters)."""
+def _fgmres_cycle(op, M, x0, b, atol, restart: int, weight=None):
+    """One FGMRES(restart) cycle.  Returns (x, resnorm, iters).
+
+    weight: optional weighted-inner-product vector (see cg): the CGS2
+    projections become V @ (w * v) and the norms sqrt(<v, w v>), i.e.
+    Arnoldi in the weighted inner product."""
     ndt = _NP_DTYPE[b.dtype]
+    w8 = _weighted(weight, b.dtype)
     r0 = b - op(x0)
-    beta = ndt(torch.linalg.vector_norm(r0).item())
+    beta = ndt(_wnorm(r0, w8).item())
 
     V = torch.zeros((restart + 1,) + tuple(b.shape), dtype=b.dtype,
                     device=b.device)
@@ -93,11 +120,11 @@ def _fgmres_cycle(op, M, x0, b, atol, restart: int):
         Z[k] = z
         # CGS2: two classical Gram-Schmidt passes against V[0..k]
         Vk = V[:k + 1].reshape(k + 1, -1)
-        h1 = Vk @ w.reshape(-1)
+        h1 = Vk @ (w.reshape(-1) if w8 is None else w8 * w.reshape(-1))
         w = w - (h1 @ Vk).reshape(w.shape)
-        h2 = Vk @ w.reshape(-1)
+        h2 = Vk @ (w.reshape(-1) if w8 is None else w8 * w.reshape(-1))
         w = w - (h2 @ Vk).reshape(w.shape)
-        wn = torch.linalg.vector_norm(w)
+        wn = _wnorm(w, w8)
         V[k + 1] = torch.where(wn > 0, w / torch.where(wn > 0, wn, 1.0),
                                0.0)
         hw = torch.cat([h1 + h2, wn.reshape(1)]).cpu().numpy()
@@ -133,9 +160,10 @@ def _fgmres_cycle(op, M, x0, b, atol, restart: int):
 
 
 def fgmres(op: Callable, b, x0=None, M: Optional[Callable] = None,
-           atol=1e-10, restart: int = 50,
-           max_restarts: int = 4) -> SolveResult:
-    """Flexible right-preconditioned GMRES with restarts."""
+           atol=1e-10, restart: int = 50, max_restarts: int = 4,
+           weight=None) -> SolveResult:
+    """Flexible right-preconditioned GMRES with restarts (weight: see
+    cg)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
@@ -143,10 +171,10 @@ def fgmres(op: Callable, b, x0=None, M: Optional[Callable] = None,
     ndt = _NP_DTYPE[b.dtype]
     atol = ndt(float(atol))
     x = x0
-    res = ndt(torch.linalg.vector_norm(b - op(x0)).item())
+    res = ndt(_wnorm(b - op(x0), _weighted(weight, b.dtype)).item())
     total_k, cyc = 0, 0
     while res > atol and cyc < max_restarts:
-        x, res, k = _fgmres_cycle(op, M, x, b, atol, restart)
+        x, res, k = _fgmres_cycle(op, M, x, b, atol, restart, weight)
         total_k += k
         cyc += 1
     return SolveResult(x=x, iters=total_k, residual=float(res))

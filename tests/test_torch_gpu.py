@@ -9,19 +9,16 @@ tests/conftest.py, which sets JAX up):
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
 
-import openifem_tpu_torch
-from openifem_tpu_torch.cases.fsi_leaflet import (inflow, leaflet_fields,
-                                                  leaflet_meshes)
-from openifem_tpu_torch.fsi import FSI
+from openifem_tpu_torch.cases.fsi_leaflet import leaflet_case, port_package
 from openifem_tpu_torch.la import cuda_ops
 from openifem_tpu_torch.la import operators as ops
 from openifem_tpu_torch.mesh import generators
-from openifem_tpu_torch.solvers.fluid import InsIM
-from openifem_tpu_torch.solvers.solid import HyperElasticity
 
 pytestmark = pytest.mark.gpu
 
@@ -94,10 +91,11 @@ def _cases(pr):
 @pytest.mark.parametrize("layout", cuda_ops.LAYOUTS)
 def test_kernel_matches_plain(cuda, layout, dtype):
     kern, plain, args = _cases(_problem(cuda, dtype))[layout]
-    before = cuda_ops.launches[layout]
+    key = (layout, str(dtype).replace("torch.", ""), N_C)
+    before = cuda_ops.launches.copy()
     y = kern(*args)
     torch.cuda.synchronize()
-    assert cuda_ops.launches[layout] == before + 1
+    assert cuda_ops.launches - before == Counter({key: 1})
     assert y.is_cuda and y.dtype == dtype
     assert rel_err(y, plain(*args)) <= TOL[dtype]
 
@@ -121,16 +119,14 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_coarse_leaflet_step_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The element-matvec preconditioner branch (a_stencil off)."""
     monkeypatch.chdir(tmp_path)   # the solid writes its first-step output
     runs = []
     for dev in (cuda, torch.device("cpu")):
-        p = openifem_tpu_torch.AllParameters(**leaflet_fields(
-            h=0.1, refinements=(0, 1), n_steps=2))
-        fm, sm = leaflet_meshes(generators, 0.1)
-        fsi = FSI(InsIM(fm, p, bc=inflow, device=dev),
-                  HyperElasticity(sm, p, device=dev), p,
-                  use_dirichlet_bc=True)
+        fsi = leaflet_case(port_package(), "element", h=0.1,
+                           refinements=(0, 1), n_steps=2, device=dev)
         fsi.run(verbose=False)
+        assert set(fsi.fluid.precond_branches) == {("element", "cg")}
         runs.append(fsi)
     g, c = runs
     assert [(s["solid_newton"], s["fluid_newton"]) for s in g.step_log] == \
@@ -140,3 +136,169 @@ def test_coarse_leaflet_step_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     assert rel_err(g.solid.current_displacement.cpu(),
                    c.solid.current_displacement) <= 1e-6
     assert np.isfinite(g.fluid.velocity_part()).all()
+
+
+# -- the dense, stencil and multigrid modules on the card, against the same
+# code on the CPU (the CPU side is held against the JAX package by the
+# test_torch_{dense,stencil,multigrid,precond_*} files).  f64 to 1e-12
+# for single applies and 1e-10 for V-cycles and preconditioner applies
+# (atomics reorder the sums); bf16 GEMV to 2**-7.  Where a GalerkinMG
+# cycle runs, 1e-5: its coarse inverse is a float32 Newton-Schulz
+# iteration by design, and cuBLAS and the CPU sum its products in another
+# order.
+GALERKIN_TOL = 1e-5
+
+def _both(fn):
+    """fn(device) on CUDA and on the CPU."""
+    return fn(torch.device("cuda")), fn(torch.device("cpu"))
+
+
+def _fluid(dev, config="element", h=0.1, knobs=None, mg=None, **kw):
+    """A port fluid set up on `dev` with a seeded mid-run state."""
+    fsi = leaflet_case(port_package(), config, h=h, refinements=(0, 1),
+                       n_steps=1, device=dev, bench_precision=False, **kw)
+    for k, v in (knobs or {}).items():
+        setattr(fsi.fluid, k, v)
+    fl = fsi.fluid
+    fl.setup()
+    meshes = (fsi.fluid_mg_base or []) + [fl.mesh]
+    if mg == "pressure":
+        fl.enable_pressure_mg(meshes)
+    elif mg == "pressure_galerkin":
+        fl.enable_pressure_mg(meshes, galerkin=True)
+    elif mg == "velocity":
+        fl.enable_velocity_mg(meshes)
+    elif mg == "velocity_geo":
+        fl.enable_velocity_mg(meshes, galerkin=False)
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(0.2 * rng.normal(size=fl.n_dofs), device=dev)
+    fl.present_solution = fl.nonzero_constraints.distribute(x)
+    return fl
+
+
+def test_condensed_dense_and_gemv_cuda_matches_cpu(cuda):
+    from openifem_tpu_torch.la import dense
+    fl0 = _fluid(torch.device("cpu"))
+    rng = np.random.default_rng(7)
+    A = rng.standard_normal((fl0.mesh.n_cells, fl0.nu_loc, fl0.nu_loc))
+    x = rng.standard_normal(fl0.n_u)
+
+    def run(dev):
+        fl = _fluid(dev)
+        ht = dense.hanging_tables(fl.u_constraints)
+        M = dense.condensed_dense(torch.as_tensor(A, device=dev),
+                                  fl.cell_dofs_u, fl.cell_dofs_u, fl.n_u,
+                                  fl.n_u, fl.u_constraints, fl.u_constraints,
+                                  ht, ht, unit_fixed_diag=True)
+        xd = torch.as_tensor(x, device=dev)
+        return (M, dense.gemv(M, xd), dense.gemv(M.float(), xd.float()),
+                dense.gemv(M.to(torch.bfloat16), xd.float()))
+
+    g, c = _both(run)
+    assert rel_err(g[0].cpu(), c[0]) <= 1e-12
+    assert rel_err(g[1].cpu(), c[1]) <= 1e-12
+    assert rel_err(g[2].cpu(), c[2]) <= 1e-5
+    assert g[3].dtype == torch.float32
+    assert rel_err(g[3].cpu(), c[3]) <= 2.0 ** -7
+
+
+def test_stencil_condensed_matvec_cuda_matches_cpu(cuda):
+    from openifem_tpu_torch.cases.fsi_leaflet import uniform_hierarchy
+    from openifem_tpu_torch.fe.space import FESpace
+    from openifem_tpu_torch.la.stencil import PatchGrid, StencilOperator
+    mesh = uniform_hierarchy(generators, 0.2, 1)[-1]
+    sp = FESpace(mesh, 2)
+    rng = np.random.default_rng(3)
+    Ab = rng.standard_normal((mesh.n_cells, 9, 2, 9, 2))
+    x = rng.standard_normal(sp.n_nodes * 2)
+    fixed = rng.random(sp.n_nodes * 2) < 0.1
+
+    def run(dev):
+        st = StencilOperator(PatchGrid.build(mesh), sp, d=2, device=dev)
+        W = st.build_weights(torch.as_tensor(Ab, device=dev))
+        fp = st.spread_mask(torch.as_tensor(fixed, device=dev))
+        return st.unspread(st.condensed_matvec(
+            W, fp, st.spread(torch.as_tensor(x, device=dev))))
+
+    g, c = _both(run)
+    assert rel_err(g.cpu(), c) <= 1e-12
+
+
+@pytest.mark.parametrize("kind", ["pressure", "velocity_geo",
+                                  "pressure_galerkin", "velocity"])
+def test_vcycle_cuda_matches_cpu(cuda, kind):
+    """One V-cycle of each class on the r2-style hierarchy; the CUDA cycle
+    launches the element-matvec kernel on every level."""
+    from openifem_tpu_torch.la.multigrid import GalerkinMG
+
+    def run(dev):
+        fl = _fluid(dev, "fsi_leaflet_r2", h=0.2, extra_refine=1, mg=kind)
+        mg = fl._velocity_mg if kind.startswith("velocity") else \
+            fl._pressure_mg
+        n = fl.n_u if kind.startswith("velocity") else fl.n_p
+        b = torch.as_tensor(np.random.default_rng(4).normal(size=n),
+                            device=dev)
+        if isinstance(mg, GalerkinMG):
+            nl = mg.cell_dofs_k[-1].shape[1]
+            blocks = np.random.default_rng(5).normal(
+                size=(fl.mesh.n_cells, nl, nl))
+            blocks = blocks @ blocks.transpose(0, 2, 1) + nl * np.eye(nl)
+            return mg.build(torch.as_tensor(blocks, device=dev))(b)
+        return mg.vcycle(b)
+
+    layout = "element_matvec_nodeblock" if kind == "velocity_geo" else \
+        "element_matvec"
+    before = cuda_ops.launches.copy()
+    g = run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert any(k[0] == layout for k in cuda_ops.launches - before)
+    c = run(torch.device("cpu"))
+    tol = GALERKIN_TOL if kind in ("pressure_galerkin", "velocity") else \
+        1e-10
+    assert rel_err(g.cpu(), c) <= tol
+
+
+R2_SMALL = dict(config="fsi_leaflet_r2", h=0.2, extra_refine=1)
+TIGHT = dict(mp_sm_rtol=1e-13, a_inner_rtol=1e-12)
+BRANCHES = {
+    "dense": dict(config="fsi_leaflet"),
+    "block_jacobi": dict(knobs=dict(a_block_jacobi=True)),
+    "a_poly3": dict(knobs=dict(a_poly=3)),
+    "stencil_flat": dict(knobs=dict(a_stencil=True, a_poly=2)),
+    "stencil": dict(R2_SMALL, knobs=dict(mg_direct=False)),
+    "pressure_mg": dict(R2_SMALL, knobs=dict(mg_direct=False),
+                        mg="pressure"),
+    "pressure_mg_galerkin": dict(R2_SMALL, knobs=dict(mg_direct=False),
+                                 mg="pressure_galerkin"),
+    "mg_direct": dict(R2_SMALL, mg="pressure"),
+    "velocity_mg": dict(R2_SMALL, knobs=dict(mg_direct=False),
+                        mg="velocity"),
+    "velocity_mg_direct": dict(R2_SMALL, knobs=dict(a_mg_cycles=2),
+                               mg="velocity_geo"),
+    "a_mg_precond": dict(R2_SMALL, knobs=dict(a_mg_precond=True),
+                         mg="velocity"),
+}
+
+
+@pytest.mark.parametrize("name", BRANCHES)
+def test_precond_apply_cuda_matches_cpu(cuda, name):
+    """One apply of each preconditioner branch, inner solves converged
+    (the f64 parity set-up of test_torch_precond_*.py)."""
+    kw = dict(BRANCHES[name])
+    kw["knobs"] = dict(TIGHT, **kw.get("knobs", {}))
+
+    def run(dev):
+        fl = _fluid(dev, **kw)
+        args = (fl.present_solution, fl.present_solution, fl.indicator,
+                fl.fsi_acceleration, fl.fsi_stress_cell, fl.fsi_acc_nodal)
+        A_loc, _ = fl._assemble(*args)
+        P = fl._make_preconditioner(A_loc, fl.u_constraints,
+                                    fl.p_constraints)
+        v = torch.as_tensor(np.random.default_rng(12).normal(
+            size=fl.n_dofs), device=dev)
+        return P(v), dict(fl.precond_branches)
+
+    (g, gb), (c, cb) = _both(run)
+    assert gb == cb
+    galerkin = kw.get("mg") in ("pressure_galerkin", "velocity")
+    assert rel_err(g.cpu(), c) <= (GALERKIN_TOL if galerkin else 1e-10)
