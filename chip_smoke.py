@@ -9,7 +9,12 @@ last line is printed:
   1. build the element-matvec kernel from csrc/ (nvcc, sm_90a);
   2. every kernel layout against its plain PyTorch version on the card, at
      the fsi_leaflet shapes (the element path's and path A's), in f64
-     (<= 1e-12) and f32 (<= 1e-5), with CUDA-event timings (median of 50);
+     (<= 1e-12) and f32 (<= 1e-5); repeated launches bitwise equal; per
+     shape the device time (CUDA events around 200 back-to-back launches
+     queued behind a sleep kernel, so the host's enqueue rate is not
+     timed), the host time (500 enqueues), the bound (bytes or operations
+     over the card's peak) and the time of a cuSPARSE CSR product of the
+     same assembled blocks (timed only; the port never calls it);
   3. the coarse leaflet (h = 0.1, refinements [0, 1]) on the element-
      matvec preconditioner branch for 3 steps on CUDA and on the CPU:
      fluid solution and solid displacement within rtol 1e-6, equal Newton
@@ -25,23 +30,28 @@ last line is printed:
      preconditioner, bf16 A block, f32 Jacobian), 17,249 dofs, 10 steps:
      finite, 1e-4 < max d_x < 0.5, the dense branch taken, the Taylor-Hood
      layout launched in f32 and no element layout in the preconditioner;
+     then the same run again, to show whether its Newton and Krylov
+     counts repeat;
   7. path B, fsi_leaflet_r2 with the bench knobs (stencil patch layout,
      one pressure V-cycle as Sm^-1), 232,997 dofs, 4 steps: the same
      state checks, the patch-layout branch and no Schur CG iterations,
      Taylor-Hood, p->u and scalar layouts launched; then each of these
      layouts against its plain version as in phase 2, in f32, at path B's
      shapes: the r2 fluid's tables (25,600 cells) and every level of the
-     pressure V-cycle on the level's own blocks.
+     pressure V-cycle on the level's own blocks; the Taylor-Hood shape
+     (49.6 MB of f32 A, about the L2's size) also with a cold L2.
 Phases 4, 6 and 7 print ms per coupled step, Newton and Krylov counts per
-step and peak device memory.  The kernels count their launches per
-(layout, dtype, number of cells); the script fails if a main path
-launched a shape that phases 2 and 7 did not check.  Then a JSON line
-with one entry per such shape (launches summed over phases 4, 6 and 7;
-error and times measured at that shape) and the last line
-{"ok": true, ...}.
+step, launches per coupled step and peak device memory, and fail if a
+gather plan is built after the first coupled step.  The kernels count
+their launches per (layout, dtype, number of cells); the script fails if
+a main path launched a shape that phases 2 and 7 did not check.  Then a
+JSON line with one entry per such shape (launches summed over phases 4,
+6 and 7, and per coupled step of each path; error and times measured at
+that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
 
+import inspect
 import json
 import os
 import statistics
@@ -49,6 +59,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from collections import Counter
 
 SOURCE = "openifem_tpu_torch/csrc/element_matvec.cu"
 REPLACES = "openifem_tpu/la/pallas_ops.py:64"
@@ -68,6 +80,12 @@ PRECOND_ELEMENT = ("element_matvec_nodeblock",
 PATH_B_LAYOUTS = ("element_matvec_taylor_hood",
                   "element_matvec_p_to_u_nodeblock", "element_matvec")
 TOL = {"float64": 1e-12, "float32": 1e-5}
+# the card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit): HBM3
+# bytes/s, and FP64 / FP32 flop/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+# back-to-back launches timed with CUDA events, enqueues timed on the host
+DEVICE_REPS, HOST_REPS = 200, 500
 # dofs (fluid + solid) of each configuration at full size (h = 0.05)
 FULL_DOFS = {"element": 17249, "fsi_leaflet": 17249,
              "fsi_leaflet_r2": 232997}
@@ -109,19 +127,102 @@ def _leaflet_solvers(device, h, refinements, n_steps, config="element",
                         n_steps=n_steps, device=device, **kw)
 
 
-def _median_ms(torch, fn, reps=50):
-    for _ in range(3):
-        fn()
-    times = []
+def _host_us(torch, fn, reps=HOST_REPS):
+    """Host time per call: the host clock over `reps` enqueues."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def _device_us(torch, fn, host_us, reps=DEVICE_REPS, flush=None):
+    """Device time per call: CUDA events around `reps` back-to-back calls
+    (one call when `flush` is given, after overwriting that buffer, which
+    evicts the L2).  A sleep kernel ahead of the first event holds the
+    card while the host queues the calls, so the events time the device
+    and not the host's enqueue rate.  Until the host finished queueing
+    before the card woke up, the sleep doubles and the calls halve (the
+    CUDA launch queue holds about a thousand kernels, and a plain
+    version launches a dozen per call)."""
+    cycles = int(2e3 * host_us * reps * 2) + 10 ** 6   # >= 2x at <= 2 GHz
+    for _ in range(8):
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
+        ahead = not a.query()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if ahead:
+            return 1e3 * a.elapsed_time(b) / reps
+        cycles, reps = 2 * cycles, max(1, reps // 2)
+    raise AssertionError("the host never queued ahead of the card")
+
+
+def _launch_args(fn):
+    """Call fn once and return the arguments of the cuda_ops.launch it
+    made, by name."""
+    from openifem_tpu_torch.la import cuda_ops
+    real, seen = cuda_ops.launch, []
+
+    def record(*args, **kw):
+        bound = inspect.signature(real).bind(*args, **kw)
+        bound.apply_defaults()
+        seen.append(bound.arguments)
+        return real(*args, **kw)
+    cuda_ops.launch = record
+    try:
+        fn()
+    finally:
+        cuda_ops.launch = real
+    return seen[0]
+
+
+def _bound(la):
+    """(bound us, bytes, "bytes" or "operations") of one apply: A, the
+    index tables the kernel reads, x and y each moved once, against the
+    2 nr nc flops per cell."""
+    A, x = la["A"], la["x"]
+    n_c, nr, nc = A.shape[0], la["nr"], la["nc"]
+    tables = [la["rows"]] + ([la["cols"]] if la["cols"] is not la["rows"]
+                             else [])
+    nbytes = (n_c * nr * nc * A.element_size()
+              + sum(t.numel() * t.element_size() for t in tables)
+              + (x.numel() + la["n_out"]) * x.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * n_c * nr * nc / PEAK_FLOPS[_dt_name(x.dtype)]
+    return (1e6 * max(t_bytes, t_ops), nbytes,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _library(torch, la):
+    """The same apply as one cuSPARSE CSR product: the blocks assembled
+    once (sparse_coo_tensor -> coalesce -> CSR), returned as a call."""
+    A, x, rows, cols = la["A"], la["x"], la["rows"], la["cols"]
+    n_c, nr, nc, dr, dc = (A.shape[0], la["nr"], la["nc"], la["dr"],
+                           la["dc"])
+    blocks = torch.as_strided(A, (n_c, nr, nc),
+                              (la["cell_stride"], la["row_stride"], 1))
+    i = torch.arange(nr, device=A.device)
+    k = torch.arange(nc, device=A.device)
+    r = (rows.long()[:, i // dr] * dr + i % dr)[:, :, None].expand(-1, -1,
+                                                                   nc)
+    c = (cols.long()[:, k // dc] * dc + k % dc)[:, None, :].expand(-1, nr,
+                                                                   -1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # sparse CSR is a beta API
+        csr = torch.sparse_coo_tensor(
+            torch.stack([r.reshape(-1), c.reshape(-1)]), blocks.reshape(-1),
+            (la["n_out"], x.numel())).coalesce().to_sparse_csr()
+    return lambda: csr @ x
 
 
 def full_size_solvers():
@@ -201,30 +302,61 @@ def kernel_cases(torch, fl, so, dt, gen, levels=()):
     return cases
 
 
-def check_kernels(torch, label, cases, dt, results):
+def check_kernels(torch, label, cases, dt, results, cold=()):
     """Each case's kernel against its plain version (relative error to
-    TOL[dt]) with CUDA-event timings; raises on a miss.  results[(layout,
+    TOL[dt]) and against itself (repeated launches bitwise equal), with
+    device, host, bound and library times; raises on a miss.  Cases whose
+    `what` is in `cold` are also timed with a cold L2.  results[(layout,
     dtype, n_cells)] keeps, per shape, the case with the largest error."""
+    from openifem_tpu_torch.la import cuda_ops
     name_dt = _dt_name(dt)
     for layout, n_c, what, kern, plain in cases:
+        la = _launch_args(kern)
+        K = cuda_ops._row_plan(la["rows"], la["n_out"], la["nr"], la["dr"],
+                               la["x"].device)[1]
         y, yp = kern(), plain()
         torch.cuda.synchronize()
         abs_err = (y - yp).abs().max().item()
         rel = abs_err / yp.abs().max().item()
-        ms = _median_ms(torch, kern)
-        plain_ms = _median_ms(torch, plain)
-        ok = rel <= TOL[name_dt]
+        host_us = _host_us(torch, kern)
+        device_us = _device_us(torch, kern, host_us)
+        plain_us = _device_us(torch, plain, _host_us(torch, plain, 50))
+        library = _library(torch, la)
+        lib_err = ((library() - yp).abs().max() / yp.abs().max()).item()
+        library_us = _device_us(torch, library, _host_us(torch, library, 50))
+        bound_us, nbytes, bound_by = _bound(la)
+        cold_us = None
+        if what in cold:
+            flush = torch.empty(2 * 64 * 2 ** 20, dtype=torch.uint8,
+                                device="cuda")
+            cold_us = statistics.median(
+                _device_us(torch, kern, host_us, reps=1, flush=flush)
+                for _ in range(20))
+            del flush
+        bitwise = all(torch.equal(kern(), y) for _ in range(3))
+        ok = rel <= TOL[name_dt] and bitwise
         say(f"{label}: {layout} ({what}, {n_c} cells) {name_dt} -> "
-            f"{tuple(y.shape)}: rel err {rel:.3e} (tol {TOL[name_dt]:.0e}) "
-            f"abs err {abs_err:.3e}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms {'ok' if ok else 'FAILED'}")
+            f"{tuple(y.shape)}, plan K {K}: rel err {rel:.3e} (tol {TOL[name_dt]:.0e}) "
+            f"abs err {abs_err:.3e}, repeats bitwise {bitwise}; device "
+            f"{device_us:.3f} us (plain {plain_us:.3f}, CSR {library_us:.3f}"
+            f", CSR rel err {lib_err:.1e}), bound {bound_us:.3f} us "
+            f"({nbytes} B, {bound_by}; {100 * bound_us / device_us:.1f} %)"
+            + (f", cold L2 {cold_us:.3f} us" if cold_us is not None else "")
+            + f", host {host_us:.2f} us/call {'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"{layout} ({what}) {name_dt} disagrees "
-                                 f"with its plain version: {rel:.3e}")
+                                 f"with its plain version ({rel:.3e}) or "
+                                 f"with itself (bitwise {bitwise})")
         key = (layout, name_dt, n_c)
         if key not in results or rel > results[key]["rel"]:
-            results[key] = dict(rel=rel, max_abs_err=abs_err, ms=ms,
-                                plain_ms=plain_ms)
+            results[key] = dict(
+                rel=rel, what=what, max_abs_err=abs_err,
+                ms=device_us / 1e3, plain_ms=plain_us / 1e3,
+                bound_ms=bound_us / 1e3, bound_by=bound_by,
+                library_ms=library_us / 1e3, device_us=device_us,
+                host_us=host_us, bound_us=bound_us, bound_bytes=nbytes,
+                library_us=library_us, plain_us=plain_us, plan_k=K,
+                bitwise_repeat=bitwise, cold_l2_us=cold_us)
 
 
 def phase2_kernels(torch):
@@ -292,13 +424,31 @@ def phase5_coarse_bench(torch):
                  bench_precision=False)
 
 
+def _mark_coupled_steps(fsi):
+    """Record (plan builds, launches) before and after every coupled
+    step: marks[0] is before the first, marks[1] after it."""
+    from openifem_tpu_torch.la import cuda_ops
+    marks, real = [], fsi.run_one_coupled_step
+
+    def step(*args, **kw):
+        if not marks:
+            marks.append((cuda_ops.plan_builds, cuda_ops.launches.copy()))
+        out = real(*args, **kw)
+        marks.append((cuda_ops.plan_builds, cuda_ops.launches.copy()))
+        return out
+    fsi.run_one_coupled_step = step
+    return marks
+
+
 def _full_run(torch, label, config, n_steps, **kw):
     """Drive one configuration at full size through FSI.run on CUDA with
     the launch counts zeroed just before and read just after.  Checks the
-    state and prints the per-step numbers; returns (fsi, launches per
-    (layout, dtype, n_cells))."""
+    state and that no gather plan was built after the first coupled step,
+    and prints the per-step numbers; returns (fsi, launches per (layout,
+    dtype, n_cells), launches per coupled step per shape)."""
     from openifem_tpu_torch.la import cuda_ops
     fsi = _leaflet_solvers("cuda", FULL_H, (0, 2), n_steps, config, **kw)
+    marks = _mark_coupled_steps(fsi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
@@ -307,6 +457,10 @@ def _full_run(torch, label, config, n_steps, **kw):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = cuda_ops.launches.copy()
+    n_coupled = len(marks) - 1
+    per_step = {k: n / n_coupled
+                for k, n in (marks[-1][1] - marks[0][1]).items()}
+    late_builds = marks[-1][0] - marks[1][0]
     peak = torch.cuda.max_memory_allocated()
     fl, so = fsi.fluid, fsi.solid
     n_dofs = fl.n_dofs + so.n_dofs
@@ -326,19 +480,23 @@ def _full_run(torch, label, config, n_steps, **kw):
             f"fluid {s['fluid_newton']}, Krylov {k}, inner per apply {per}")
     ms = [1e3 * s["seconds"] for s in coupled]
     ok = (finite and 1e-4 < max_dx < 0.5 and n_dofs == FULL_DOFS[config]
-          and len(coupled) == n_steps - 1)
+          and len(coupled) == n_steps - 1 == n_coupled and late_builds == 0)
     say(f"{label}: {config} {fl.n_dofs} + {so.n_dofs} = {n_dofs} dofs, "
         f"{n_steps} steps in {seconds:.2f} s; coupled steps {len(coupled)}, "
         f"{statistics.mean(ms):.1f} ms/step mean, "
         f"{statistics.median(ms):.1f} median; peak device memory "
         f"{peak / 2**20:.1f} MiB; finite {finite}, max d_x {max_dx:.4e}; "
-        f"branches {dict(fl.precond_branches)}; launches {dict(launches)} "
-        f"{'ok' if ok else 'FAILED'}")
+        f"branches {dict(fl.precond_branches)}; launches {dict(launches)}; "
+        f"launches per coupled step "
+        f"{ {k: round(v, 1) for k, v in sorted(per_step.items())} }; plan "
+        f"builds {marks[-1][0]} ({late_builds} after the first coupled "
+        f"step) {'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError(
             f"{label} failed: finite={finite} max_dx={max_dx} "
-            f"n_dofs={n_dofs} coupled={len(coupled)}")
-    return fsi, launches
+            f"n_dofs={n_dofs} coupled={len(coupled)} "
+            f"plan builds after the first coupled step={late_builds}")
+    return fsi, launches, per_step
 
 
 def _launched(launches, layout, dtype=None):
@@ -354,7 +512,7 @@ def _require(label, cond, what):
 
 def phase4_full(torch):
     label = "phase 4"
-    fsi, launches = _full_run(torch, label, "element", 10)
+    fsi, launches, per_step = _full_run(torch, label, "element", 10)
     missing = [k for k in PATH_LAYOUTS if not _launched(launches, k)]
     _require(label, not missing, f"layouts never launched: {missing}")
     _require(label, set(fsi.fluid.precond_branches) == {("element", "cg")},
@@ -363,12 +521,17 @@ def phase4_full(torch):
         f"flat B/B^T layout, is off this path: "
         f"{_launched(launches, 'element_matvec_rect')} launches; phase 2 "
         "checks it)")
-    return launches
+    return launches, per_step
+
+
+def _step_counts(fsi):
+    return [(s["solid_newton"], s["fluid_newton"], s["krylov"])
+            for s in fsi.step_log]
 
 
 def phase6_path_a(torch):
     label = "phase 6"
-    fsi, launches = _full_run(torch, label, "fsi_leaflet", 10)
+    fsi, launches, per_step = _full_run(torch, label, "fsi_leaflet", 10)
     fl = fsi.fluid
     _require(label, fl.dense_precond and fl.dense_a_bf16 and fl.f32_matrix,
              "bench knobs not set")
@@ -383,7 +546,14 @@ def phase6_path_a(torch):
              f"preconditioner: {used}")
     say(f"{label}: dense branch taken, Taylor-Hood f32 launched, no element "
         "layout in the preconditioner ok")
-    return launches
+    again, _, _ = _full_run(torch, label + " (again)", "fsi_leaflet", 10)
+    first, second = _step_counts(fsi), _step_counts(again)
+    diverged = [i for i, (a, b) in enumerate(zip(first, second)) if a != b]
+    say(f"{label}: a second run repeats the Newton and Krylov counts of the "
+        f"first: {not diverged}" + (
+            f" (first differing step {diverged[0] + 1}: {first[diverged[0]]}"
+            f" then {second[diverged[0]]})" if diverged else ""))
+    return launches, per_step
 
 
 def phase7_path_b(torch, results):
@@ -391,8 +561,8 @@ def phase7_path_b(torch, results):
     version at the shapes it launched: the r2 fluid's tables and the
     pressure V-cycle's levels, in the f32 of the bench knobs."""
     label = "phase 7"
-    fsi, launches = _full_run(torch, label, "fsi_leaflet_r2", 4,
-                              extra_refine=2)
+    fsi, launches, per_step = _full_run(torch, label, "fsi_leaflet_r2", 4,
+                                        extra_refine=2)
     fl = fsi.fluid
     _require(label, set(fl.precond_branches) == {("stencil", "vcycle")},
              f"branch {dict(fl.precond_branches)}")
@@ -407,8 +577,8 @@ def phase7_path_b(torch, results):
     cases = kernel_cases(torch, fl, fsi.solid, torch.float32, gen, levels)
     check_kernels(torch, label, [c for c in cases if c[0] in PATH_B_LAYOUTS
                                  and c[2] != "solid"], torch.float32,
-                  results)
-    return launches
+                  results, cold=("Jacobian",))
+    return launches, per_step
 
 
 def main():
@@ -425,11 +595,12 @@ def main():
         phase1_build()
         checked = phase2_kernels(torch)
         phase3_coarse(torch)
-        launched = phase4_full(torch)
+        runs = {"element": phase4_full(torch)}
         phase5_coarse_bench(torch)
-        launched += phase6_path_a(torch)
-        launched += phase7_path_b(torch, checked)
+        runs["fsi_leaflet"] = phase6_path_a(torch)
+        runs["fsi_leaflet_r2"] = phase7_path_b(torch, checked)
         os.chdir(root)
+    launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a main path launched was held against the plain version
     unchecked = sorted(k for k in launched if k not in checked)
     _require("kernels", not unchecked,
@@ -439,6 +610,9 @@ def main():
     # launched, with the error and times measured at that shape
     kernels = [dict(name=f"{name}[{dt}, {n_c} cells]", route="cuda",
                     source=SOURCE, replaces=REPLACES, launches=n,
+                    launches_per_coupled_step={
+                        path: per_step.get((name, dt, n_c), 0.0)
+                        for path, (_, per_step) in runs.items()},
                     **{k: v for k, v in checked[(name, dt, n_c)].items()
                        if k != "rel"})
                for (name, dt, n_c), n in sorted(launched.items())]

@@ -3,8 +3,10 @@
 Same module tree and names as the JAX package.  Meshes and dof maps are
 built on the host with numpy; per-step compute (element assembly, matrix-
 free Krylov solves, FSI coupling) runs as eager PyTorch on the device from
-config.device().  On a CUDA device the element-block matvec runs through
-the hand-written kernel in csrc/element_matvec.cu (la/cuda_ops.py).
+config.device(): the CUDA card unless the caller asks for the CPU
+(`device="cpu"` or OPENIFEM_DEVICE=cpu); without a card the default
+raises.  On a CUDA device the element-block matvec runs through the
+hand-written kernel in csrc/element_matvec.cu (la/cuda_ops.py).
 """
 
 from . import config  # noqa: F401

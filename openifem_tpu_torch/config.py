@@ -14,7 +14,13 @@ the CPU, whichever entry point runs them.
 
 Environment:
   OPENIFEM_X64=0        run the solver state in float32
-  OPENIFEM_DEVICE=...   torch device for solver state (default "cpu")
+  OPENIFEM_DEVICE=...   torch device for solver state (default "cuda"),
+                        read each time a solver or operator picks its
+                        device; OPENIFEM_DEVICE=cpu asks for the CPU
+
+The port runs on the card unless the caller asks for the CPU, with
+`device="cpu"` or OPENIFEM_DEVICE=cpu.  Without a card the default raises;
+nothing switches to the CPU on its own.
 """
 
 import os
@@ -22,7 +28,6 @@ import os
 import torch
 
 _X64 = os.environ.get("OPENIFEM_X64", "1") != "0"
-_DEVICE = torch.device(os.environ.get("OPENIFEM_DEVICE", "cpu"))
 
 
 def full_precision_products():
@@ -44,7 +49,17 @@ def real_dtype():
     return torch.float64 if _X64 else torch.float32
 
 
-def device():
-    """The torch device that holds solver state."""
-    return _DEVICE
+def device(requested=None):
+    """The torch device that holds solver state: `requested` when given,
+    else OPENIFEM_DEVICE, else "cuda".  Raises for a CUDA device when no
+    card is present."""
+    if requested is None:
+        requested = os.environ.get("OPENIFEM_DEVICE", "cuda")
+    dev = torch.device(requested)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the port runs on {dev} by default and no CUDA device is "
+            "present; pass device='cpu' or set OPENIFEM_DEVICE=cpu to run "
+            "on the CPU")
+    return dev
 

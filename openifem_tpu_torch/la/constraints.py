@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import device as _default_device
+from ..config import device as _device
 from ..config import real_dtype
 
 
@@ -22,8 +22,7 @@ class Constraints:
     def __init__(self, n_dofs: int, hang_idx=None, hang_w=None,
                  hanging_mask=None, dirichlet_mask=None,
                  dirichlet_values=None, device=None):
-        dev = torch.device(device) if device is not None else \
-            _default_device()
+        dev = _device(device)
         rdt = real_dtype()
         self.n_dofs = n_dofs
         if hang_idx is None:

@@ -27,16 +27,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import device as _default_device
+from ..config import device as _device
 from ..config import index_dtype
 from ..fe.fevalues import cell_values
 from ..fe.shapes import QkShapes
 from ..fe.space import FESpace
 from ..la.operators import element_matvec, element_matvec_nodeblock
-
-
-def _dev(device):
-    return torch.device(device) if device is not None else _default_device()
 
 
 def _expand_dofs(cd, k):
@@ -206,7 +202,7 @@ class MGLevel:
     def __init__(self, space: FESpace, A_loc: np.ndarray,
                  fixed: np.ndarray, dtype, cell_dofs=None, ncomp: int = 1,
                  device=None):
-        dev = _dev(device)
+        dev = _device(device)
         self.space = space
         cd_np = np.asarray(cell_dofs if cell_dofs is not None
                            else space.cell_dofs)
@@ -288,7 +284,7 @@ class GeometricMG:
 
     def __init__(self, levels: List[MGLevel], n_smooth: int = 2,
                  dtype=torch.float32, ncomp: int = 1, device=None):
-        dev = _dev(device)
+        dev = _device(device)
         self.levels = levels
         self.n_smooth = n_smooth
         self.ncomp = ncomp
@@ -505,7 +501,7 @@ class GalerkinMG:
     def __init__(self, spaces, fine_cell_dofs, rep_blocks, fixed_fine,
                  n_smooth: int = 2, dtype=torch.float32, ncomp: int = 1,
                  lam_safety: float = 1.15, device=None):
-        dev = _dev(device)
+        dev = _device(device)
         self.n_smooth = n_smooth
         self.dtype = dtype
         self.ncomp = ncomp

@@ -6,7 +6,8 @@ index_select -> einsum -> index_add_) and a dispatching entry point of
 the JAX name: a CUDA tensor goes to the hand-written kernel
 (la/cuda_ops.py, csrc/element_matvec.cu), a CPU tensor to the plain
 version.  On a CUDA tensor the kernel runs or the call raises; it never
-falls back to the plain version.
+falls back to the plain version.  The kernel reads the gather plan of
+`make_gather_plan`, which cuda_ops builds once per index table.
 """
 
 from __future__ import annotations
@@ -187,6 +188,43 @@ def element_matvec_taylor_hood(A_loc, u_nodes, p_dofs, nlu: int, d: int,
     return cuda_ops.launch("element_matvec_taylor_hood", A_loc,
                            A_loc.stride(0), A_loc.stride(1), cell_dofs,
                            cell_dofs, n_u + n_p, x, nl, nl)
+
+
+def make_gather_plan(cell_dofs, n_dofs: int):
+    """Per-dof incidence table turning the matvec scatter-add into a
+    static-shape gather + sum (the JAX package's transpose layout).
+
+    Returns (n_dofs, K) int32, on cell_dofs' device: row e lists, in
+    increasing order, the flat (cell * nl + local) positions whose dof is
+    e, padded at the end with the sentinel n_c * nl, the index of a zero
+    slot appended to the flattened (n_c * nl,) local results.  K is the
+    largest number of incidences of a dof (1 when the table is empty).
+    The CUDA kernel walks these rows (la/cuda_ops.py)."""
+    cd = cell_dofs.reshape(-1).long()
+    n_flat = cd.numel()
+    order = torch.argsort(cd, stable=True)
+    sorted_dofs = cd[order]
+    counts = torch.bincount(cd, minlength=n_dofs)
+    K = int(counts.max()) if n_flat else 1
+    inc = torch.full((n_dofs, K), n_flat, dtype=torch.int64,
+                     device=cd.device)
+    starts = torch.zeros(n_dofs + 1, dtype=torch.int64, device=cd.device)
+    torch.cumsum(counts, 0, out=starts[1:])
+    ar = torch.arange(n_flat, device=cd.device)
+    inc[sorted_dofs, ar - starts[sorted_dofs]] = order
+    return inc.to(torch.int32)
+
+
+def element_matvec_gather(A_loc, cell_dofs, plan, x):
+    """y = A x via the gather plan (same result as element_matvec)."""
+    return element_matvec_rect_gather(A_loc, cell_dofs, plan, x)
+
+
+def element_matvec_rect_gather(A_loc, col_dofs, row_plan, x):
+    """Rectangular block apply via a row-dof gather plan."""
+    yl = torch.einsum("cij,cj->ci", A_loc, x[col_dofs])
+    ylp = torch.cat([yl.reshape(-1), yl.new_zeros(1)])
+    return ylp[row_plan.long()].sum(dim=1)
 
 
 def element_diag(A_loc, cell_dofs, n_dofs: int):

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import device as _default_device
+from ..config import device as _device
 
 
 def _lex(idx, k):
@@ -340,8 +340,7 @@ class StencilOperator:
         if cd.shape[1] != nl:
             raise ValueError("space/degree mismatch")
         n_nodes = space.n_nodes
-        dev = torch.device(device) if device is not None else \
-            _default_device()
+        dev = _device(device)
         self.device = dev
 
         self.space = space

@@ -14,7 +14,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ...config import device as _default_device
+from ...config import device as _device
 from ...config import real_dtype
 from ...fe.fevalues import cell_values, face_values
 from ...fe.shapes import gauss_quadrature
@@ -75,13 +75,13 @@ class FluidSolverBase:
         """bc: hard-coded boundary-value function f(points (n,dim), component)
         -> (n,) used when params.use_hard_coded_values (reference:
         source/fluid_solver.cpp:132-143).  device: torch device of the
-        solver state (default config.device())."""
+        solver state (default config.device(): "cuda" unless
+        OPENIFEM_DEVICE says otherwise)."""
         self.mesh = mesh
         self.params = params
         self.dim = mesh.dim
         self.boundary_values = bc
-        self.device = torch.device(device) if device is not None else \
-            _default_device()
+        self.device = _device(device)
         self.time = Time(params.end_time, params.time_step,
                          params.output_interval, params.refinement_interval,
                          params.save_interval)

@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...config import device as _default_device
+from ...config import device as _device
 from ...config import index_dtype, real_dtype
 from ...fe.fevalues import CellValues, FaceValues, cell_values, face_values
 from ...fe.shapes import gauss_quadrature
@@ -30,8 +30,7 @@ class SolidSolverBase:
         self.mesh = mesh
         self.params = params
         self.dim = mesh.dim
-        self.device = torch.device(device) if device is not None else \
-            _default_device()
+        self.device = _device(device)
         self.time = Time(params.end_time, params.time_step,
                          params.output_interval, params.refinement_interval,
                          params.save_interval)

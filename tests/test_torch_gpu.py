@@ -1,10 +1,11 @@
 """The CUDA element-matvec kernel on the card: every layout against its
 plain PyTorch version (f64 to 1e-12, f32 to 1e-5, relative to the plain
-result's max norm; atomics reorder the sums), one counted launch per
-call, refusal of what the kernel does not take, and a coarse leaflet step
-on CUDA equal to the same step on the CPU.  Needs a CUDA device, and
-imports no JAX, so it runs where JAX is absent (--noconftest skips
-tests/conftest.py, which sets JAX up):
+result's max norm; the kernel sums in another order), bitwise-equal
+results from repeated launches, one counted launch and one device kernel
+per call, one plan build per table, refusal of what the kernel does not
+take, and a coarse leaflet step on CUDA equal to the same step on the
+CPU.  Needs a CUDA device, and imports no JAX, so it runs where JAX is
+absent (--noconftest skips tests/conftest.py, which sets JAX up):
 
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -23,7 +24,13 @@ from openifem_tpu_torch.mesh import generators
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-N_C, NLU, D, NLP, N_UN, N_P = 1780, 9, 2, 4, 7379, 1897
+NLU, D, NLP = 9, 2, 4
+# (cells, velocity nodes, pressure dofs): the leaflet's counts, and a
+# small problem; neither output count is a multiple of the outputs per
+# block, the random tables leave nodes and dofs with no incidence, and
+# their plans pad K
+SIZES = {"leaflet": (1780, 7379, 1897), "small": (37, 70, 30)}
+N_C, N_UN, N_P = SIZES["leaflet"]
 
 
 def rel_err(got, ref):
@@ -38,66 +45,116 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(dev, dtype, seed=0):
+def _problem(dev, dtype, seed=0, size="leaflet"):
+    n_c, n_un, n_p = SIZES[size]
     g = torch.Generator(device=dev).manual_seed(seed)
     nl = NLU * D + NLP
-    un = torch.randint(0, N_UN, (N_C, NLU), generator=g, device=dev)
-    pd = torch.randint(0, N_P, (N_C, NLP), generator=g, device=dev)
+    # the last velocity node and pressure dof have no incidence
+    un = torch.randint(0, n_un - 1, (n_c, NLU), generator=g, device=dev)
+    pd = torch.randint(0, n_p - 1, (n_c, NLP), generator=g, device=dev)
     cd = torch.cat([(un[:, :, None] * D + torch.arange(D, device=dev))
-                    .reshape(N_C, -1), pd + N_UN * D], dim=1)
+                    .reshape(n_c, -1), pd + n_un * D], dim=1)
     return dict(
-        A=torch.randn(N_C, nl, nl, generator=g, device=dev, dtype=dtype),
+        A=torch.randn(n_c, nl, nl, generator=g, device=dev, dtype=dtype),
         un=un.to(torch.int32), pd=pd.to(torch.int32),
         cd=cd.to(torch.int32).contiguous(),
-        x=torch.randn(N_UN * D + N_P, generator=g, device=dev, dtype=dtype))
+        x=torch.randn(n_un * D + n_p, generator=g, device=dev, dtype=dtype),
+        n_c=n_c, n_un=n_un, n_p=n_p)
 
 
 def _cases(pr):
     A, un, pd, cd, x = pr["A"], pr["un"], pr["pd"], pr["cd"], pr["x"]
-    nu, n_u = NLU * D, N_UN * D
-    Auu_b = A[:, :nu, :nu].reshape(N_C, NLU, D, NLU, D)
-    Aup_b = A[:, :nu, nu:].reshape(N_C, NLU, D, NLP)
+    n_c, n_un, n_p = pr["n_c"], pr["n_un"], pr["n_p"]
+    nu, n_u = NLU * D, n_un * D
+    Auu_b = A[:, :nu, :nu].reshape(n_c, NLU, D, NLU, D)
+    Aup_b = A[:, :nu, nu:].reshape(n_c, NLU, D, NLP)
     Apu = A[:, nu:, :nu]
-    Apu_b = Apu.reshape(N_C, NLP, NLU, D)
+    Apu_b = Apu.reshape(n_c, NLP, NLU, D)
     Mp = A[:, nu:, nu:]
     xu, xp = x[:n_u], x[n_u:]
     cd_u = cd[:, :nu].contiguous()
     return {
         "element_matvec": (ops.element_matvec, ops.element_matvec_plain,
-                           (Mp, pd, N_P, xp)),
+                           (Mp, pd, n_p, xp)),
         "element_matvec_rect": (ops.element_matvec_rect,
                                 ops.element_matvec_rect_plain,
-                                (Apu, pd, cd_u, N_P, xu)),
+                                (Apu, pd, cd_u, n_p, xu)),
         "element_matvec_nodeblock": (ops.element_matvec_nodeblock,
                                      ops.element_matvec_nodeblock_plain,
-                                     (Auu_b, un, N_UN, xu)),
+                                     (Auu_b, un, n_un, xu)),
         "element_matvec_u_to_p_nodeblock": (
             ops.element_matvec_u_to_p_nodeblock,
             ops.element_matvec_u_to_p_nodeblock_plain,
-            (Apu_b, un, pd, N_P, xu)),
+            (Apu_b, un, pd, n_p, xu)),
         "element_matvec_p_to_u_nodeblock": (
             ops.element_matvec_p_to_u_nodeblock,
             ops.element_matvec_p_to_u_nodeblock_plain,
-            (Aup_b, un, pd, N_UN, xp)),
+            (Aup_b, un, pd, n_un, xp)),
         "element_matvec_taylor_hood": (
             lambda *a: ops.element_matvec_taylor_hood(*a, cell_dofs=cd),
             ops.element_matvec_taylor_hood_plain,
-            (A, un, pd, NLU, D, n_u, N_P, x)),
+            (A, un, pd, NLU, D, n_u, n_p, x)),
     }
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
-                         ids=["f64", "f32"])
+DTYPES = pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                                 ids=["f64", "f32"])
+
+
+@DTYPES
+@pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("layout", cuda_ops.LAYOUTS)
-def test_kernel_matches_plain(cuda, layout, dtype):
-    kern, plain, args = _cases(_problem(cuda, dtype))[layout]
-    key = (layout, str(dtype).replace("torch.", ""), N_C)
+def test_kernel_matches_plain(cuda, layout, size, dtype):
+    """Right at both sizes, bitwise equal over repeated launches, one
+    counted launch per call and one plan build per table."""
+    pr = _problem(cuda, dtype, size=size)
+    kern, plain, args = _cases(pr)[layout]
+    key = (layout, str(dtype).replace("torch.", ""), pr["n_c"])
     before = cuda_ops.launches.copy()
     y = kern(*args)
     torch.cuda.synchronize()
     assert cuda_ops.launches - before == Counter({key: 1})
     assert y.is_cuda and y.dtype == dtype
     assert rel_err(y, plain(*args)) <= TOL[dtype]
+    builds = cuda_ops.plan_builds
+    for _ in range(5):
+        assert torch.equal(kern(*args), y)
+    assert cuda_ops.plan_builds == builds
+    assert cuda_ops.launches - before == Counter({key: 6})
+
+
+def _device_events(fn):
+    """Names of the device activities torch.profiler records around fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.fixture(scope="module")
+def profiler():
+    """torch.profiler with its device tracing started once (the first
+    profiling run of a process also sets CUPTI up)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _device_events(lambda: torch.ones(1, device="cuda").add_(1))
+    return _device_events
+
+
+@DTYPES
+@pytest.mark.parametrize("layout", cuda_ops.LAYOUTS)
+def test_one_device_kernel_per_apply(cuda, profiler, layout, dtype):
+    """No zero fill: the profiler sees the element-matvec kernel once per
+    apply and no other device work."""
+    kern, _, args = _cases(_problem(cuda, dtype))[layout]
+    kern(*args)                     # the plan is built outside the window
+    torch.cuda.synchronize()
+    on_device = profiler(lambda: [kern(*args) for _ in range(3)])
+    assert len(on_device) == 3, on_device
+    assert all("element_matvec_kernel" in n for n in on_device), on_device
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -142,8 +199,8 @@ def test_coarse_leaflet_step_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
 # code on the CPU (the CPU side is held against the JAX package by the
 # test_torch_{dense,stencil,multigrid,precond_*} files).  f64 to 1e-12
 # for single applies and 1e-10 for V-cycles and preconditioner applies
-# (atomics reorder the sums); bf16 GEMV to 2**-7.  Where a GalerkinMG
-# cycle runs, 1e-5: its coarse inverse is a float32 Newton-Schulz
+# (index_add_'s atomics reorder the sums); bf16 GEMV to 2**-7.  Where a
+# GalerkinMG cycle runs, 1e-5: its coarse inverse is a float32 Newton-Schulz
 # iteration by design, and cuBLAS and the CPU sum its products in another
 # order.
 GALERKIN_TOL = 1e-5

@@ -6,6 +6,7 @@ openifem_tpu_torch.cases.fsi_leaflet (numpy only); data moves between
 them as numpy arrays.  JAX stays on the CPU (tests/conftest.py).
 """
 
+import os
 from types import SimpleNamespace
 
 import jax
@@ -24,6 +25,9 @@ from openifem_tpu_torch.cases.fsi_leaflet import leaflet_case, port_package
 # the tests run several workers at once; one thread each is as fast at
 # these sizes
 torch.set_num_threads(1)
+# the port runs on the card unless asked for the CPU: these tests ask, for
+# every solver and operator that a test builds without a device argument
+os.environ["OPENIFEM_DEVICE"] = "cpu"
 
 # the coarse leaflet: 4,324 fluid + 54 solid dofs
 COARSE = dict(h=0.1, refinements=(0, 1))
@@ -39,7 +43,10 @@ PORT = port_package()
 def leaflet_fsi(port: bool, n_steps=3, h=0.1, refinements=(0, 1),
                 config="element", **kw):
     """An unrun FSI of the leaflet case in either package (the element-
-    matvec configuration unless `config` says otherwise)."""
+    matvec configuration unless `config` says otherwise); the port's on
+    the CPU."""
+    if port:
+        kw.setdefault("device", "cpu")
     return leaflet_case(PORT if port else JAX, config, h=h,
                         refinements=refinements, n_steps=n_steps, **kw)
 
