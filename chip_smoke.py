@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (openifem_tpu_torch) once on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 8,9,10]
 
 Phases, one line each; any failure raises and exits non-zero before the
-last line is printed:
+last line is printed (--phases runs a subset, for development; phases 0
+and 1 always run):
   0. the device (torch's name, and nvidia-smi's name and power limit);
   1. build the element-matvec kernel from csrc/ (nvcc, sm_90a);
   2. every kernel layout against its plain PyTorch version on the card, at
@@ -19,8 +20,8 @@ last line is printed:
      matvec preconditioner branch for 3 steps on CUDA and on the CPU:
      fluid solution and solid displacement within rtol 1e-6, equal Newton
      counts;
-  4. that branch at the reference size (17,249 dofs) for 10 steps on CUDA
-     (host first step + 9 coupled steps): finite, leaflet pushed
+  4. that branch at the reference size (17,249 dofs) for 4 steps on CUDA
+     (host first step + 3 coupled steps): finite, leaflet pushed
      downstream (1e-4 < max d_x < 0.5), all five layouts launched;
   5. the coarse versions of the two bench configurations, f64 knobs,
      CUDA vs CPU as in phase 3: the dense preconditioner (h = 0.1), and
@@ -39,18 +40,36 @@ last line is printed:
      layouts against its plain version as in phase 2, in f32, at path B's
      shapes: the r2 fluid's tables (25,600 cells) and every level of the
      pressure V-cycle on the level's own blocks; the Taylor-Hood shape
-     (49.6 MB of f32 A, about the L2's size) also with a cold L2.
+     (49.6 MB of f32 A, about the L2's size) also with a cold L2;
+  8. the standalone fluid, coarse, CUDA vs CPU: the Turek cylinder at
+     refine 1 (3,612 dofs), all-f64 "r1" configuration, host first step
+     and a 3-step window of InsIM's stepper; InsIMEX for 3 steps: within
+     rtol 1e-6, equal Newton counts;
+  9. the cylinder as the JAX bench runs it: "r3" (54,192 dofs: host first
+     step, a 2-step warm-up window, 5 timed steps in one stepper call) and
+     "r4" (214,368 dofs: no host first step, 1 warm-up step, 3 timed
+     steps, one call each), with the bench knobs: every timed step
+     converged, finite fields, the z-order stencil patches and the
+     configuration's preconditioner branch taken;
+ 10. InsIMEX at refine 3 (54,192 dofs), 5 steps: finite, and
+     element_matvec_rect launched on its path.
+Phases 8-10 then hold every kernel shape they launched against its plain
+version as phase 2 does, at the path's own tables.
 Phases 4, 6 and 7 print ms per coupled step, Newton and Krylov counts per
 step, launches per coupled step and peak device memory, and fail if a
-gather plan is built after the first coupled step.  The kernels count
-their launches per (layout, dtype, number of cells); the script fails if
-a main path launched a shape that phases 2 and 7 did not check.  Then a
-JSON line with one entry per such shape (launches summed over phases 4,
-6 and 7, and per coupled step of each path; error and times measured at
-that shape) and the last line {"ok": true, ...}.
+gather plan is built after the first coupled step; phases 9 and 10 print
+ms per step, dof-steps per second, Newton and Krylov counts, host
+synchronisations per step, launches per step and peak memory, and fail
+if a plan is built after the configuration's first step.  The kernels
+count their launches per (layout, dtype, number of cells, block rows,
+block columns); the script fails if a path launched a shape that no phase
+checked.  Then a JSON line with one entry per such shape (launches summed
+over the paths of phases 4 and 6-10, and per step of each path; error and
+times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
 
+import argparse
 import inspect
 import json
 import os
@@ -65,8 +84,7 @@ from collections import Counter
 SOURCE = "openifem_tpu_torch/csrc/element_matvec.cu"
 REPLACES = "openifem_tpu/la/pallas_ops.py:64"
 # the layouts that the element-matvec branch launches; element_matvec_rect
-# (the flat B / B^T layout of solvers not ported yet) is checked in phase 2
-# only
+# (the flat B / B^T layout) is InsIMEX's, phase 10
 PATH_LAYOUTS = ("element_matvec_taylor_hood", "element_matvec_nodeblock",
                 "element_matvec_u_to_p_nodeblock",
                 "element_matvec_p_to_u_nodeblock", "element_matvec")
@@ -90,6 +108,16 @@ DEVICE_REPS, HOST_REPS = 200, 500
 FULL_DOFS = {"element": 17249, "fsi_leaflet": 17249,
              "fsi_leaflet_r2": 232997}
 FULL_H = 0.05
+# the cylinder configurations as bench_cylinder runs them: dofs, whether
+# the host path takes the first step, warm-up steps, timed steps, whether
+# the timed steps are one stepper call, and the (A-solve, Sm-solve) branch
+CYLINDER_RUNS = {
+    "r3": dict(dofs=54192, host_first=True, warm=2, timed=5, one_call=True,
+               branch=("stencil", "cg+vcycle")),
+    "r4": dict(dofs=214368, host_first=False, warm=1, timed=3,
+               one_call=False, branch=("stencil", "vcycle")),
+}
+IMEX_REFINE, IMEX_DOFS, IMEX_STEPS = 3, 54192, 5
 
 
 def say(msg):
@@ -244,14 +272,16 @@ def _dt_name(dt):
 
 def kernel_cases(torch, fl, so, dt, gen, levels=()):
     """[(layout, n_cells, operator, kernel call, plain call)]: every layout
-    at the shapes of the fluid's and the solid's tables (random blocks from
-    `gen`), and the scalar or node-block layout on each multigrid level's
-    own blocks (cast to `dt`; random x)."""
+    at the shapes of the fluid's tables and (unless `so` is None) the
+    solid's, with random blocks from `gen`; the node-block layouts only
+    where the fluid has a velocity node table (InsIMEX has none); and the
+    scalar or node-block layout on each multigrid level's own blocks (cast
+    to `dt`; random x).  The "flat" cases are InsIMEX's: blocks read as
+    strided views of the system table."""
     from openifem_tpu_torch.la import operators as ops
     d, nlu, nu = fl.dim, fl.nlu, fl.nu_loc
     n_c = fl.mesh.n_cells
-    cn_u, cd_u, cd_p, cd = (fl.cell_nodes_u, fl.cell_dofs_u, fl.cell_dofs_p,
-                            fl.cell_dofs)
+    cd_u, cd_p, cd = fl.cell_dofs_u, fl.cell_dofs_p, fl.cell_dofs
     n_un = fl.n_u // d
 
     def rnd(*shape):
@@ -259,34 +289,47 @@ def kernel_cases(torch, fl, so, dt, gen, levels=()):
     A = rnd(n_c, fl.nu_loc + fl.nlp, fl.nu_loc + fl.nlp)
     x = rnd(fl.n_dofs)
     xu, xp = x[:fl.n_u].contiguous(), x[fl.n_u:].contiguous()
-    Auu_b = A[:, :nu, :nu].reshape(n_c, nlu, d, nlu, d)
-    Apu = A[:, nu:, :nu]
-    Aup_b = A[:, :nu, nu:].reshape(n_c, nlu, d, fl.nlp)
+    Auu, Aup, Apu = A[:, :nu, :nu], A[:, :nu, nu:], A[:, nu:, :nu]
     Mp = rnd(n_c, fl.nlp, fl.nlp)
-    As = rnd(so.mesh.n_cells, 8, 8)
-    xs = rnd(so.n_dofs)
 
     def pair(name, *args, **kw):
         return (lambda: getattr(ops, name)(*args, **kw),
                 lambda: getattr(ops, name + "_plain")(*args))
-    cases = [
-        ("element_matvec_taylor_hood", n_c, "Jacobian",
-         *pair("element_matvec_taylor_hood", A, cn_u, cd_p, nlu, d, fl.n_u,
-               fl.n_p, x, cell_dofs=cd)),
-        ("element_matvec_nodeblock", n_c, "A block",
-         *pair("element_matvec_nodeblock", Auu_b, cn_u, n_un, xu)),
-        ("element_matvec_u_to_p_nodeblock", n_c, "B",
-         *pair("element_matvec_u_to_p_nodeblock",
-               Apu.reshape(n_c, fl.nlp, nlu, d), cn_u, cd_p, fl.n_p, xu)),
-        ("element_matvec_p_to_u_nodeblock", n_c, "B^T",
-         *pair("element_matvec_p_to_u_nodeblock", Aup_b, cn_u, cd_p, n_un,
-               xp)),
-        ("element_matvec", n_c, "Mp",
-         *pair("element_matvec", Mp, cd_p, fl.n_p, xp)),
-        ("element_matvec", so.mesh.n_cells, "solid",
-         *pair("element_matvec", As, so.cell_dofs, so.n_dofs, xs)),
+    cases = []
+    if hasattr(fl, "cell_nodes_u"):
+        cn_u = fl.cell_nodes_u
+        cases += [
+            ("element_matvec_taylor_hood", n_c, "Jacobian",
+             *pair("element_matvec_taylor_hood", A, cn_u, cd_p, nlu, d,
+                   fl.n_u, fl.n_p, x, cell_dofs=cd)),
+            ("element_matvec_nodeblock", n_c, "A block",
+             *pair("element_matvec_nodeblock",
+                   Auu.reshape(n_c, nlu, d, nlu, d), cn_u, n_un, xu)),
+            ("element_matvec_u_to_p_nodeblock", n_c, "B",
+             *pair("element_matvec_u_to_p_nodeblock",
+                   Apu.reshape(n_c, fl.nlp, nlu, d), cn_u, cd_p, fl.n_p,
+                   xu)),
+            ("element_matvec_p_to_u_nodeblock", n_c, "B^T",
+             *pair("element_matvec_p_to_u_nodeblock",
+                   Aup.reshape(n_c, nlu, d, fl.nlp), cn_u, cd_p, n_un, xp)),
+        ]
+    cases.append(("element_matvec", n_c, "Mp",
+                  *pair("element_matvec", Mp, cd_p, fl.n_p, xp)))
+    if so is not None:
+        As = rnd(so.mesh.n_cells, 8, 8)
+        xs = rnd(so.n_dofs)
+        cases.append(("element_matvec", so.mesh.n_cells, "solid",
+                      *pair("element_matvec", As, so.cell_dofs, so.n_dofs,
+                            xs)))
+    cases += [
         ("element_matvec_rect", n_c, "flat B",
          *pair("element_matvec_rect", Apu, cd_p, cd_u, fl.n_p, xu)),
+        ("element_matvec_rect", n_c, "flat B^T",
+         *pair("element_matvec_rect", Aup, cd_u, cd_p, fl.n_u, xp)),
+        ("element_matvec", n_c, "flat A block",
+         *pair("element_matvec", Auu, cd_u, fl.n_u, xu)),
+        ("element_matvec", n_c, "flat system",
+         *pair("element_matvec", A, cd, fl.n_dofs, x)),
     ]
     for i, lv in enumerate(levels):
         Al, xl = lv.A_loc.to(dt).contiguous(), rnd(lv.n)
@@ -302,16 +345,21 @@ def kernel_cases(torch, fl, so, dt, gen, levels=()):
     return cases
 
 
-def check_kernels(torch, label, cases, dt, results, cold=()):
+def check_kernels(torch, label, cases, dt, results, cold=(), only=None):
     """Each case's kernel against its plain version (relative error to
     TOL[dt]) and against itself (repeated launches bitwise equal), with
     device, host, bound and library times; raises on a miss.  Cases whose
     `what` is in `cold` are also timed with a cold L2.  results[(layout,
-    dtype, n_cells)] keeps, per shape, the case with the largest error."""
+    dtype, n_cells, block rows, block columns)] keeps, per shape, the case
+    with the largest error.  `only`: a set of such shapes; cases of other
+    shapes, and of shapes that `results` holds already, are skipped."""
     from openifem_tpu_torch.la import cuda_ops
     name_dt = _dt_name(dt)
     for layout, n_c, what, kern, plain in cases:
         la = _launch_args(kern)
+        key = (layout, name_dt, n_c, la["nr"], la["nc"])
+        if only is not None and (key not in only or key in results):
+            continue
         K = cuda_ops._row_plan(la["rows"], la["n_out"], la["nr"], la["dr"],
                                la["x"].device)[1]
         y, yp = kern(), plain()
@@ -335,7 +383,8 @@ def check_kernels(torch, label, cases, dt, results, cold=()):
             del flush
         bitwise = all(torch.equal(kern(), y) for _ in range(3))
         ok = rel <= TOL[name_dt] and bitwise
-        say(f"{label}: {layout} ({what}, {n_c} cells) {name_dt} -> "
+        say(f"{label}: {layout} ({what}, {n_c} cells, {la['nr']} x "
+            f"{la['nc']} blocks) {name_dt} -> "
             f"{tuple(y.shape)}, plan K {K}: rel err {rel:.3e} (tol {TOL[name_dt]:.0e}) "
             f"abs err {abs_err:.3e}, repeats bitwise {bitwise}; device "
             f"{device_us:.3f} us (plain {plain_us:.3f}, CSR {library_us:.3f}"
@@ -347,7 +396,6 @@ def check_kernels(torch, label, cases, dt, results, cold=()):
             raise AssertionError(f"{layout} ({what}) {name_dt} disagrees "
                                  f"with its plain version ({rel:.3e}) or "
                                  f"with itself (bitwise {bitwise})")
-        key = (layout, name_dt, n_c)
         if key not in results or rel > results[key]["rel"]:
             results[key] = dict(
                 rel=rel, what=what, max_abs_err=abs_err,
@@ -501,7 +549,7 @@ def _full_run(torch, label, config, n_steps, **kw):
 
 def _launched(launches, layout, dtype=None):
     """Launches of one layout (of one dtype) over all shapes."""
-    return sum(n for (name, dt, _), n in launches.items()
+    return sum(n for (name, dt, *_), n in launches.items()
                if name == layout and dtype in (None, dt))
 
 
@@ -512,15 +560,15 @@ def _require(label, cond, what):
 
 def phase4_full(torch):
     label = "phase 4"
-    fsi, launches, per_step = _full_run(torch, label, "element", 10)
+    fsi, launches, per_step = _full_run(torch, label, "element", 4)
     missing = [k for k in PATH_LAYOUTS if not _launched(launches, k)]
     _require(label, not missing, f"layouts never launched: {missing}")
     _require(label, set(fsi.fluid.precond_branches) == {("element", "cg")},
              f"branch {dict(fsi.fluid.precond_branches)}")
     say(f"{label}: all five layouts launched ok (element_matvec_rect, the "
         f"flat B/B^T layout, is off this path: "
-        f"{_launched(launches, 'element_matvec_rect')} launches; phase 2 "
-        "checks it)")
+        f"{_launched(launches, 'element_matvec_rect')} launches; phase 10 "
+        "runs it)")
     return launches, per_step
 
 
@@ -576,12 +624,276 @@ def phase7_path_b(torch, results):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     cases = kernel_cases(torch, fl, fsi.solid, torch.float32, gen, levels)
     check_kernels(torch, label, [c for c in cases if c[0] in PATH_B_LAYOUTS
-                                 and c[2] != "solid"], torch.float32,
-                  results, cold=("Jacobian",))
+                                 and c[2] != "solid"
+                                 and not c[2].startswith("flat")],
+                  torch.float32, results, cold=("Jacobian",))
+    return launches, per_step
+
+
+# -- the standalone fluid: the Turek cylinder (cases/fluid_cylinder.py) ----
+
+def _rel(a, b):
+    """max |a - b| relative to b's max norm, on the CPU."""
+    a, b = a.cpu(), b.cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _check_launched(torch, label, fl, launches, results, levels=()):
+    """Hold every shape in `launches` (a path's launch counts) against its
+    plain version at the tables of the solver that launched it."""
+    for name_dt in sorted({k[1] for k in launches}):
+        dt = getattr(torch, name_dt)
+        gen = torch.Generator(device="cuda").manual_seed(97)
+        check_kernels(torch, label,
+                      kernel_cases(torch, fl, None, dt, gen, levels), dt,
+                      results, only=set(launches))
+
+
+def phase8_coarse_cylinder(torch, results):
+    """InsIM's stepper and InsIMEX at refine 1, CUDA vs CPU."""
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.la import cuda_ops
+    label = "phase 8"
+    pkg = fc.port_package()
+
+    def insim(dev):
+        fl = fc.cylinder_case(pkg, "r1", n_steps=4, bench_precision=False,
+                              device=dev)
+        fl.run_one_step(True, verbose=False)
+        first = fl.newton_iters
+        sol, rel, it = fl.make_on_device_stepper()(fl.present_solution, 3)
+        return fl, sol, rel, (first, it)
+
+    def imex(dev):
+        fl = fc.imex_case(pkg, 1, 3, device=dev)
+        outer = []
+        for _ in range(3):
+            k0 = fl.krylov_iters["outer"]
+            fl.run_one_step(fl.time.get_timestep() == 0, verbose=False)
+            outer.append(fl.krylov_iters["outer"] - k0)
+        return fl, outer
+
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    gfl, gsol, grel, gits = insim("cuda")
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    launches = cuda_ops.launches.copy()
+    t0 = time.perf_counter()
+    cfl, csol, crel, cits = insim("cpu")
+    t_cpu = time.perf_counter() - t0
+    err = _rel(gsol, csol)
+    tol = gfl.params.fluid_tolerance
+    ok = (err <= 1e-6 and gits == cits and grel < tol and crel < tol
+          and gfl.precond_branches == cfl.precond_branches
+          and set(gfl.precond_branches) == {("stencil", "cg+vcycle")})
+    say(f"{label}: coarse cylinder r1 (f64), {gfl.n_dofs} dofs, host first "
+        f"step + 3-step stepper window, CUDA vs CPU: solution rel err "
+        f"{err:.3e} (rtol 1e-6); Newton (first step, worst of window) CUDA "
+        f"{gits} CPU {cits}; worst rel res CUDA {grel:.3e} CPU {crel:.3e}; "
+        f"branches {dict(gfl.precond_branches)}; {t_gpu:.2f} s CUDA, "
+        f"{t_cpu:.2f} s CPU {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "InsIM stepper: CUDA and CPU runs disagree")
+    _check_launched(torch, label, gfl, launches, results,
+                    gfl._pressure_mg.levels)
+
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    gfl, gouter = imex("cuda")
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    imex_launches = cuda_ops.launches.copy()
+    t0 = time.perf_counter()
+    cfl, couter = imex("cpu")
+    t_cpu = time.perf_counter() - t0
+    err = _rel(gfl.present_solution, cfl.present_solution)
+    ok = err <= 1e-6 and _launched(imex_launches, "element_matvec_rect") > 0
+    say(f"{label}: coarse InsIMEX, {gfl.n_dofs} dofs, 3 steps, CUDA vs CPU: "
+        f"solution rel err {err:.3e} (rtol 1e-6); outer FGMRES iterations "
+        f"per step CUDA {gouter} CPU {couter} (equal: {gouter == couter}; "
+        f"not required: the sums' order differs between the kernel and "
+        f"index_add_); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "InsIMEX: CUDA and CPU runs disagree")
+    _check_launched(torch, label, gfl, imex_launches, results)
+    return launches + imex_launches, {}
+
+
+def _window_report(label, what, fl, n_steps, seconds, k0, solves, newton,
+                   syncs, launches0, peak):
+    """Print one timed window's numbers (`solves` outer linear solves,
+    `newton` a note on them); returns launches per step."""
+    from openifem_tpu_torch.la import cuda_ops
+    k = {n: v - k0[n] for n, v in fl.krylov_iters.items()}
+    per_apply = {n: round(k[n] / max(k["applies"], 1), 2)
+                 for n in ("mp", "sm", "a")}
+    per_step = {key: n / n_steps
+                for key, n in (cuda_ops.launches - launches0).items()}
+    ms = 1e3 * seconds / n_steps
+    say(f"{label}: {what}: {n_steps} timed steps in {seconds:.3f} s, "
+        f"{ms:.1f} ms/step, {fl.n_dofs * n_steps / seconds:.1f} "
+        f"dof-steps/s; {newton}; Krylov {k}, outer per solve "
+        f"{k['outer'] / max(solves, 1):.2f}, inner per "
+        f"apply {per_apply}; host syncs per step {syncs / n_steps:.1f}; "
+        f"launches per step "
+        f"{ {key: round(v, 1) for key, v in sorted(per_step.items())} }; "
+        f"peak device memory {peak / 2**20:.1f} MiB")
+    return per_step
+
+
+def _cylinder_run(torch, label, config, results):
+    """One cylinder configuration at full size through InsIM's host first
+    step (where the bench takes it) and make_on_device_stepper, with the
+    launch counts zeroed just before and read just after."""
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.la.stencil import PatchGrid
+    from openifem_tpu_torch.utils.timer import count_host_syncs
+    run = CYLINDER_RUNS[config]
+    label = f"{label} {config}"
+    t0 = time.perf_counter()
+    fl = fc.cylinder_case(fc.port_package(), config,
+                          n_steps=1 + run["warm"] + run["timed"],
+                          device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zorder = (PatchGrid._build_lattice(fl.mesh) is None
+              and fl._u_stencil is not None)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    if run["host_first"]:
+        fl.run_one_step(True, verbose=False)
+        first = f"host first step Newton {fl.newton_iters}"
+    else:
+        # the impulsive start: inject the boundary values, and let the
+        # stepper's warm-up step converge it
+        fl.present_solution = fl.nonzero_constraints.apply_increment(
+            fl.present_solution)
+        fl.time.increment()
+        first = "no host first step"
+    stepper = fl.make_on_device_stepper()
+    builds_first = None
+    if run["host_first"]:
+        torch.cuda.synchronize()
+        builds_first = cuda_ops.plan_builds
+    sol, warm_rel, warm_it = stepper(fl.present_solution, run["warm"])
+    torch.cuda.synchronize()
+    if builds_first is None:
+        builds_first = cuda_ops.plan_builds
+    start_s = time.perf_counter() - t0
+    say(f"{label}: {fl.mesh.n_cells} cells, {fl.n_dofs} dofs, set up in "
+        f"{setup_s:.2f} s; {first}, {run['warm']}-step warm-up window "
+        f"(worst rel res {warm_rel:.3e}, Newton {warm_it}) in "
+        f"{start_s:.2f} s; z-order patches {zorder}")
+
+    k0, b0 = dict(fl.krylov_iters), sum(fl.precond_branches.values())
+    l0 = cuda_ops.launches.copy()
+    with count_host_syncs() as syncs:
+        t0 = time.perf_counter()
+        if run["one_call"]:
+            sol, worst_rel, worst_it = stepper(sol, run["timed"])
+        else:
+            worst_rel, worst_it = 0.0, 0
+            for _ in range(run["timed"]):
+                sol, rel, it = stepper(sol, 1)
+                worst_rel, worst_it = max(worst_rel, rel), max(worst_it, it)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = cuda_ops.launches.copy()
+    late_builds = cuda_ops.plan_builds - builds_first
+    solves = sum(fl.precond_branches.values()) - b0
+    per_step = _window_report(
+        label, "stepper" + (" (one call)" if run["one_call"]
+                            else " (one call per step)"),
+        fl, run["timed"], seconds, k0, solves,
+        f"Newton iterations {solves / run['timed']:.2f} per step, worst "
+        f"{worst_it}", syncs["syncs"], l0, torch.cuda.max_memory_allocated())
+    fl.present_solution = sol
+    fl.update_stress()
+    finite = bool(torch.isfinite(sol).all()) and \
+        bool(torch.isfinite(fl.stress_device).all())
+    vmax = sol[:fl.n_u].abs().max().item()
+    ok = (worst_rel < fl.params.fluid_tolerance and finite and zorder
+          and fl.n_dofs == run["dofs"] and late_builds == 0
+          and set(fl.precond_branches) == {run["branch"]}
+          and 0.29 < vmax < 1.0
+          and (config != "r4" or fl.krylov_iters["sm"] == 0))
+    say(f"{label}: worst rel res {worst_rel:.3e} (< "
+        f"{fl.params.fluid_tolerance:.0e}), finite {finite}, max |u| "
+        f"{vmax:.4f} (inflow peak 0.3), branches "
+        f"{dict(fl.precond_branches)}, plan builds {cuda_ops.plan_builds} "
+        f"({late_builds} after the first step) {'ok' if ok else 'FAILED'}")
+    _require(label, ok, f"cylinder {config} failed")
+    _check_launched(torch, label, fl, launches, results,
+                    fl._pressure_mg.levels)
+    return launches, per_step
+
+
+def phase9_cylinder(torch, results):
+    return {f"cylinder_{config}": _cylinder_run(torch, "phase 9", config,
+                                                results)
+            for config in CYLINDER_RUNS}
+
+
+def phase10_insimex(torch, results):
+    """InsIMEX at refine 3 through run_one_step, 5 steps."""
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.utils.timer import count_host_syncs
+    label = "phase 10"
+    t0 = time.perf_counter()
+    fl = fc.imex_case(fc.port_package(), IMEX_REFINE, IMEX_STEPS,
+                      device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    fl.run_one_step(True, verbose=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    builds_first = cuda_ops.plan_builds
+    say(f"{label}: InsIMEX {fl.mesh.n_cells} cells, {fl.n_dofs} dofs, set "
+        f"up in {setup_s:.2f} s; first step (boundary values folded in) "
+        f"{1e3 * first_s:.1f} ms, Krylov {fl.krylov_iters}")
+    n = IMEX_STEPS - 1
+    k0, l0 = dict(fl.krylov_iters), cuda_ops.launches.copy()
+    with count_host_syncs() as syncs:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fl.run_one_step(False, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = cuda_ops.launches.copy()
+    late_builds = cuda_ops.plan_builds - builds_first
+    per_step = _window_report(
+        label, "run_one_step", fl, n, seconds, k0, n,
+        "one linear solve per step", syncs["syncs"], l0,
+        torch.cuda.max_memory_allocated())
+    sol = fl.present_solution
+    finite = bool(torch.isfinite(sol).all()) and \
+        bool(torch.isfinite(fl.stress_device).all())
+    vmax = sol[:fl.n_u].abs().max().item()
+    rect = _launched(launches, "element_matvec_rect")
+    ok = (finite and rect > 0 and fl.n_dofs == IMEX_DOFS
+          and late_builds == 0 and 0.29 < vmax < 1.0
+          and fl.time.get_timestep() == IMEX_STEPS)
+    say(f"{label}: finite {finite}, max |u| {vmax:.4f}, "
+        f"element_matvec_rect launched {rect} times on the path, plan "
+        f"builds {cuda_ops.plan_builds} ({late_builds} after the first "
+        f"step) {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "InsIMEX failed")
+    _check_launched(torch, label, fl, launches, results)
     return launches, per_step
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 11))),
+                    help="comma-separated phases to run besides 0 and 1 "
+                         "(default: all)")
+    want = {int(p) for p in ap.parse_args().phases.split(",") if p}
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import torch
@@ -589,33 +901,48 @@ def main():
     # raises ImportError when the script runs outside the repository; the
     # import also sets the package's precision policy (config.py)
     import openifem_tpu_torch  # noqa: F401
+    checked, runs = {}, {}
     # the solids write their first-step VTU output to the working directory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         os.chdir(work)
         phase1_build()
-        checked = phase2_kernels(torch)
-        phase3_coarse(torch)
-        runs = {"element": phase4_full(torch)}
-        phase5_coarse_bench(torch)
-        runs["fsi_leaflet"] = phase6_path_a(torch)
-        runs["fsi_leaflet_r2"] = phase7_path_b(torch, checked)
+        if 2 in want:
+            checked = phase2_kernels(torch)
+        if 3 in want:
+            phase3_coarse(torch)
+        if 4 in want:
+            runs["element"] = phase4_full(torch)
+        if 5 in want:
+            phase5_coarse_bench(torch)
+        if 6 in want:
+            runs["fsi_leaflet"] = phase6_path_a(torch)
+        if 7 in want:
+            runs["fsi_leaflet_r2"] = phase7_path_b(torch, checked)
+        if 8 in want:
+            runs["coarse_cylinder"] = phase8_coarse_cylinder(torch, checked)
+        if 9 in want:
+            runs.update(phase9_cylinder(torch, checked))
+        if 10 in want:
+            runs["insimex_r3"] = phase10_insimex(torch, checked)
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
-    # every shape a main path launched was held against the plain version
+    # every shape a path launched was held against the plain version
     unchecked = sorted(k for k in launched if k not in checked)
     _require("kernels", not unchecked,
              f"launched but never checked against the plain version: "
              f"{unchecked}")
-    # one entry per (layout, dtype, number of cells) that the main paths
-    # launched, with the error and times measured at that shape
-    kernels = [dict(name=f"{name}[{dt}, {n_c} cells]", route="cuda",
-                    source=SOURCE, replaces=REPLACES, launches=n,
-                    launches_per_coupled_step={
-                        path: per_step.get((name, dt, n_c), 0.0)
+    # one entry per (layout, dtype, number of cells, block rows, block
+    # columns) that the paths launched, with the error and times measured
+    # at that shape
+    kernels = [dict(name=f"{name}[{dt}, {n_c} cells, {nr}x{nc}]",
+                    route="cuda", source=SOURCE, replaces=REPLACES,
+                    launches=n,
+                    launches_per_step={
+                        path: per_step.get(key, 0.0)
                         for path, (_, per_step) in runs.items()},
-                    **{k: v for k, v in checked[(name, dt, n_c)].items()
-                       if k != "rel"})
-               for (name, dt, n_c), n in sorted(launched.items())]
+                    **{k: v for k, v in checked[key].items() if k != "rel"})
+               for key, n in sorted(launched.items())
+               for name, dt, n_c, nr, nc in [key]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

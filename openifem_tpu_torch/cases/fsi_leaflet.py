@@ -147,11 +147,12 @@ def port_package():
     from ..fsi import FSI
     from ..mesh import generators
     from ..parameters import AllParameters
-    from ..solvers.fluid import InsIM
+    from ..solvers.fluid import InsIM, InsIMEX
     from ..solvers.solid import HyperElasticity
     return SimpleNamespace(AllParameters=AllParameters,
                            generators=generators, InsIM=InsIM,
-                           HyperElasticity=HyperElasticity, FSI=FSI)
+                           InsIMEX=InsIMEX, HyperElasticity=HyperElasticity,
+                           FSI=FSI)
 
 
 def leaflet_case(pkg, config: str = "fsi_leaflet", h: float = 0.05,

@@ -19,7 +19,8 @@ dtype, device and storage span and x's dtype, device, shape and
 contiguity, allocates y with torch.empty, makes one ctypes call on
 PyTorch's current stream, raises if the kernel returned an error, and
 counts the launch in `launches` under (layout, dtype name, number of
-cells), so that a caller can tell which shapes a run launched.
+cells, block rows, block columns), so that a caller can tell which shapes
+a run launched.
 la/operators.py calls it for CUDA tensors; there is no fallback to the
 plain version.  `emulate` is the kernel's index arithmetic in plain
 PyTorch, for the tests.
@@ -49,7 +50,8 @@ LAYOUTS = ("element_matvec", "element_matvec_rect",
            "element_matvec_p_to_u_nodeblock", "element_matvec_taylor_hood")
 # the widest block row the kernel takes (kMaxSteps * 32 in the source)
 MAX_COLUMNS = 256
-# launches of the kernel, per (layout, dtype name, number of cells)
+# launches of the kernel, per (layout, dtype name, number of cells, block
+# rows, block columns)
 launches = Counter()
 # gather plans built (one per index table and row count)
 plan_builds = 0
@@ -235,7 +237,7 @@ def launch(layout: str, A, cell_stride: int, row_stride: int, rows, cols,
     if rc != 0:
         raise RuntimeError(f"element-matvec kernel launch failed "
                            f"({layout}): cudaError {rc}")
-    launches[(layout, dt_name, n_c)] += 1
+    launches[(layout, dt_name, n_c, nr, nc)] += 1
     return y
 
 

@@ -1,3 +1,4 @@
 from .insim import InsIM
+from .insimex import InsIMEX
 
-__all__ = ["InsIM"]
+__all__ = ["InsIM", "InsIMEX"]

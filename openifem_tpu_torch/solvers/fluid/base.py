@@ -89,6 +89,7 @@ class FluidSolverBase:
         self.timer = Timer(type(self).__name__)
         self._setup_done = False
         self.body_force = None          # set_body_force analog
+        self.initial_condition = None   # set_initial_condition analog
         # time-dependent hard-coded BCs: bid -> fn(points, component, time)
         self.hard_coded_bcs = {}
         self.bc_time = 0.0
@@ -104,6 +105,11 @@ class FluidSolverBase:
     def set_body_force(self, fn: Callable):
         """fn(points (n,dim)) -> (n,dim) body acceleration."""
         self.body_force = fn
+
+    def set_initial_condition(self, fn: Callable):
+        """fn(points (n,dim), component) -> (n,) initial field values
+        (reference: source/mpi_fluid_solver.cpp:105-113)."""
+        self.initial_condition = fn
 
     # ------------------------------------------------------------------
     def setup(self):
@@ -130,6 +136,8 @@ class FluidSolverBase:
         self.present_solution = torch.zeros(self.n_dofs, dtype=rdt,
                                             device=dev)
         self.solution_increment = torch.zeros_like(self.present_solution)
+        if self.initial_condition is not None:
+            self._apply_initial_condition()
 
         n_c = mesh.n_cells
         self.indicator = torch.zeros(n_c, dtype=rdt, device=dev)
@@ -204,6 +212,16 @@ class FluidSolverBase:
         return self.u_constraints.with_extra_dirichlet(
             cons.dirichlet[:self.n_u],
             torch.zeros(self.n_u, dtype=real_dtype(), device=self.device))
+
+    def _apply_initial_condition(self):
+        """reference: source/mpi_fluid_solver.cpp:367-414."""
+        x = np.zeros(self.n_dofs)
+        for d in range(self.dim):
+            x[d:self.n_u:self.dim] = np.asarray(
+                self.initial_condition(self.u_space.node_points, d))
+        x[self.n_u:] = np.asarray(
+            self.initial_condition(self.p_space.node_points, self.dim))
+        self.present_solution = self._tensor(x)
 
     # ------------------------------------------------------------------
     def _setup_stress_projection(self):

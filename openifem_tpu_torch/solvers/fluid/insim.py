@@ -640,38 +640,82 @@ class InsIM(FluidSolverBase):
         return du, res_norm, iters, residual
 
     # ------------------------------------------------------------------
+    def _newton_loop(self, eval_pt, present, indicator, fsi_acc, fsi_stress,
+                     fsi_acc_nodal, cons, ucons, pcons):
+        """The Newton loop of one time step from `eval_pt`, with the
+        stopping rules of the JAX package's fused steps (insim.py
+        make_fsi_step, make_on_device_stepper), run eagerly: iterate
+        while res / res0 > fluid_tolerance and res > 1e-11, at most
+        fluid_max_iterations times, and not stagnated.  Returns (eval_pt,
+        rel_res, newton_iters); rel_res is 0 where res0 <= 1e-11 or on
+        stagnation."""
+        tol = self.params.fluid_tolerance
+        max_it = self.params.fluid_max_iterations
+
+        def newton_once(eval_pt, res0=None):
+            du, rn, its, _ = self._newton_iter_impl(
+                eval_pt, present, indicator, fsi_acc, fsi_stress,
+                fsi_acc_nodal, cons, ucons, pcons, res0=res0)
+            return eval_pt + du, rn, its
+
+        def stagnated(res, prev, last_its):
+            # a 0-iteration Krylov solve with a non-decreasing residual
+            # is machine-level stagnation -> treat as converged
+            return last_its == 0 and res >= prev * (1 - 1e-12)
+
+        eval_pt, res0, last_its = newton_once(eval_pt)
+        it, res, prev = 1, res0, math.inf
+        while (res / max(res0, 1e-300) > tol and res > 1e-11 and
+               it < max_it and not stagnated(res, prev, last_its)):
+            eval_pt, rn, last_its = newton_once(eval_pt, res0)
+            it, prev, res = it + 1, res, rn
+        rel = res / max(res0, 1e-300) if res0 > 1e-11 else 0.0
+        if stagnated(res, prev, last_its):
+            rel = 0.0
+        return eval_pt, rel, it
+
+    def make_on_device_stepper(self):
+        """Time stepping without the host path's bookkeeping: the
+        production / benchmark path (run_one_step remains the instrumented
+        one).  Returns fn(present, n_steps) -> (present, max_rel_res,
+        max_newton_iters): the worst final Newton relative residual and
+        the largest iteration count over the window, so callers can
+        detect a silently non-converged step (the host path raises 'Too
+        many Newton iterations!' instead).  Each step starts its Newton
+        loop at the present solution with zero-increment constraints; no
+        constraint increment, stress update, output or time increment
+        happens inside.
+
+        The JAX package compiles the window into one dispatch; here it is
+        an eager loop on device tensors, and every Krylov iteration still
+        ends in a host synchronisation (la/krylov.py)."""
+        cons = self.zero_constraints
+        ucons = self.u_constraints
+        pcons = self.p_constraints
+
+        def run_n(present, n_steps):
+            worst_rel, worst_it = 0.0, 0
+            for _ in range(int(n_steps)):
+                present, rel, it = self._newton_loop(
+                    present, present, self.indicator, self.fsi_acceleration,
+                    self.fsi_stress_cell, self.fsi_acc_nodal, cons, ucons,
+                    pcons)
+                worst_rel, worst_it = max(worst_rel, rel), max(worst_it, it)
+            return present, worst_rel, worst_it
+
+        return run_n
+
     def make_fsi_step(self):
         """One coupled-run time step: the Newton loop with the stopping
         rules of the JAX package's fused step (insim.py make_fsi_step),
         run eagerly.  Returns fn(present, indicator, fsi_acc, fsi_stress,
         fsi_acc_nodal, zero_cons, nonzero_cons, ucons, pcons) ->
         (present, stress_nodal, rel_res, newton_iters)."""
-        tol = self.params.fluid_tolerance
-        max_it = self.params.fluid_max_iterations
-
         def step(present, indicator, fsi_acc, fsi_stress, fsi_acc_nodal,
                  zero_cons, nonzero_cons, ucons, pcons):
-            def newton_once(eval_pt, res0=None):
-                du, rn, its, _ = self._newton_iter_impl(
-                    eval_pt, present, indicator, fsi_acc, fsi_stress,
-                    fsi_acc_nodal, zero_cons, ucons, pcons, res0=res0)
-                return eval_pt + du, rn, its
-
-            def stagnated(res, prev, last_its):
-                # a 0-iteration Krylov solve with a non-decreasing residual
-                # is machine-level stagnation -> treat as converged
-                return last_its == 0 and res >= prev * (1 - 1e-12)
-
-            eval_pt = nonzero_cons.apply_increment(present)
-            eval_pt, res0, last_its = newton_once(eval_pt)
-            it, res, prev = 1, res0, math.inf
-            while (res / max(res0, 1e-300) > tol and res > 1e-11 and
-                   it < max_it and not stagnated(res, prev, last_its)):
-                eval_pt, rn, last_its = newton_once(eval_pt, res0)
-                it, prev, res = it + 1, res, rn
-            rel = res / max(res0, 1e-300) if res0 > 1e-11 else 0.0
-            if stagnated(res, prev, last_its):
-                rel = 0.0
+            eval_pt, rel, it = self._newton_loop(
+                nonzero_cons.apply_increment(present), present, indicator,
+                fsi_acc, fsi_stress, fsi_acc_nodal, zero_cons, ucons, pcons)
             return eval_pt, self._update_stress_impl(eval_pt), rel, it
 
         return step
@@ -739,3 +783,32 @@ class InsIM(FluidSolverBase):
         self.run_one_step(True, verbose=verbose)
         while self.time.end() - self.time.current() > 1e-12:
             self.run_one_step(False, verbose=verbose)
+
+    def run_on_device(self, verbose: bool = True):
+        """run() with all steps after the first through
+        make_on_device_stepper; static-BC configurations only (the
+        stepper applies zero-increment constraints)."""
+        assert not self.hard_coded_bcs, \
+            "run_on_device(InsIM) supports static BCs only"
+        if not self._setup_done:
+            self.mesh = self.mesh.refine_global(
+                self.params.global_refinements[0])
+            self.setup()
+        self.run_one_step(True, verbose=verbose)
+        dt = self.time.get_delta_t()
+        n = int(round((self.time.end() - self.time.current()) / dt))
+        if n <= 0:
+            return
+        stepper = self.make_on_device_stepper()
+        sol, rel, its = stepper(self.present_solution, n)
+        if rel > self.params.fluid_tolerance:
+            raise RuntimeError("Too many Newton iterations!")
+        self.solution_increment = sol - self.present_solution
+        self.present_solution = sol
+        self.newton_iters = its
+        for _ in range(n):
+            self.time.increment()
+        self.update_stress()
+        if verbose:
+            print(f"run_on_device: {n} steps, worst rel_res "
+                  f"{rel:.3e}, max newton iters {its}")

@@ -50,3 +50,47 @@ class Timer:
 
     def print_summary(self):
         print(self.summary())
+
+
+# the tensor methods through which the port reads a device value on the
+# host; each waits for the device to finish the work queued before it
+_SYNC_METHODS = ("item", "cpu", "tolist", "__bool__", "__float__",
+                 "__int__", "__index__")
+
+
+@contextmanager
+def count_host_syncs(counted=lambda t: t.is_cuda):
+    """Count the host synchronisations inside the block: the calls of
+    item(), cpu(), tolist(), bool(), float() and int() on a tensor that
+    `counted` accepts (default: CUDA tensors).  Yields a dict whose
+    "syncs" entry is the running count.  The eager Krylov loops end every
+    iteration in one such call (la/krylov.py), so this is the number a
+    CUDA graph or an on-device stopping test would remove.  float(t) is
+    counted once although torch routes it through item()."""
+    import torch
+    out = {"syncs": 0}
+    own = vars(torch.Tensor)
+    saved = {name: own.get(name) for name in _SYNC_METHODS}
+    depth = [0]
+
+    def wrap(fn):
+        def method(self, *args, **kw):
+            if depth[0] == 0 and counted(self):
+                out["syncs"] += 1
+            depth[0] += 1
+            try:
+                return fn(self, *args, **kw)
+            finally:
+                depth[0] -= 1
+        return method
+
+    for name in saved:
+        setattr(torch.Tensor, name, wrap(getattr(torch.Tensor, name)))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            if fn is None:      # inherited: drop the override
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)

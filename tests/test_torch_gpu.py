@@ -99,6 +99,13 @@ def _cases(pr):
 
 DTYPES = pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                                  ids=["f64", "f32"])
+# (block rows, block columns) of each layout's case in _cases
+BLOCK = {"element_matvec": (NLP, NLP),
+         "element_matvec_rect": (NLP, NLU * D),
+         "element_matvec_nodeblock": (NLU * D, NLU * D),
+         "element_matvec_u_to_p_nodeblock": (NLP, NLU * D),
+         "element_matvec_p_to_u_nodeblock": (NLU * D, NLP),
+         "element_matvec_taylor_hood": (NLU * D + NLP, NLU * D + NLP)}
 
 
 @DTYPES
@@ -109,7 +116,8 @@ def test_kernel_matches_plain(cuda, layout, size, dtype):
     counted launch per call and one plan build per table."""
     pr = _problem(cuda, dtype, size=size)
     kern, plain, args = _cases(pr)[layout]
-    key = (layout, str(dtype).replace("torch.", ""), pr["n_c"])
+    key = (layout, str(dtype).replace("torch.", ""), pr["n_c"],
+           *BLOCK[layout])
     before = cuda_ops.launches.copy()
     y = kern(*args)
     torch.cuda.synchronize()
@@ -359,3 +367,72 @@ def test_precond_apply_cuda_matches_cpu(cuda, name):
     assert gb == cb
     galerkin = kw.get("mg") in ("pressure_galerkin", "velocity")
     assert rel_err(g.cpu(), c) <= (GALERKIN_TOL if galerkin else 1e-10)
+
+
+# -- the standalone fluid path: the Turek cylinder through InsIM's stepper
+# and through InsIMEX, on the card against the same code on the CPU (which
+# tests/test_torch_{cylinder,insimex}.py hold against the JAX package).
+# 1e-6 with equal Newton / outer counts: each linear system is solved to a
+# 1e-8 relative residual.
+
+def test_cylinder_stepper_cuda_matches_cpu(cuda):
+    """The all-f64 "r1" configuration at refine 1: host first step and a
+    2-step stepper window; the z-order stencil patches and the pressure
+    V-cycle inside the Schur CG run on the card."""
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.utils.timer import count_host_syncs
+
+    def run(dev):
+        fl = fc.cylinder_case(port_package(), "r1", n_steps=3,
+                              bench_precision=False, device=dev)
+        fl.run_one_step(True, verbose=False)
+        first, k0 = fl.newton_iters, dict(fl.krylov_iters)
+        with count_host_syncs() as syncs:
+            sol, rel, it = fl.make_on_device_stepper()(fl.present_solution,
+                                                       2)
+        krylov = sum(fl.krylov_iters[n] - k0[n]
+                     for n in ("outer", "mp", "sm", "a"))
+        return fl, sol, rel, (first, it), syncs["syncs"], krylov
+
+    before = cuda_ops.launches.copy()
+    (gfl, g, grel, gits, gsyncs, krylov), (_, c, _, cits, csyncs, _) = \
+        _both(run)
+    assert g.is_cuda and gits == cits
+    assert grel < gfl.params.fluid_tolerance
+    assert rel_err(g.cpu(), c) <= 1e-6
+    assert set(gfl.precond_branches) == {("stencil", "cg+vcycle")}
+    launched = {k[0] for k in cuda_ops.launches - before}
+    assert {"element_matvec_taylor_hood", "element_matvec",
+            "element_matvec_u_to_p_nodeblock",
+            "element_matvec_p_to_u_nodeblock"} <= launched
+    # every Krylov iteration of the window ends in a host read of a device
+    # value; on the CPU no tensor is a CUDA tensor
+    assert gsyncs >= krylov > 0
+    assert csyncs == 0
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["f64", "f32_precond"])
+def test_insimex_cuda_matches_cpu(cuda, mixed):
+    """3 steps at refine 1.  The preconditioner applies B and B^T through
+    element_matvec_rect on strided views of the system table, in f64 or
+    (mixed_precision_precond) f32."""
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+
+    def run(dev):
+        fl = fc.imex_case(port_package(), 1, 3, device=dev)
+        fl.mixed_precision_precond = mixed
+        fl.run(verbose=False)
+        return fl
+
+    before = cuda_ops.launches.copy()
+    g, c = _both(run)
+    new = cuda_ops.launches - before
+    dt = "float32" if mixed else "float64"
+    assert new[("element_matvec_rect", dt, 368, 4, 18)] > 0     # B
+    assert new[("element_matvec_rect", dt, 368, 18, 4)] > 0     # B^T
+    assert new[("element_matvec", dt, 368, 18, 18)] > 0         # A block
+    assert new[("element_matvec", "float64", 368, 22, 22)] > 0  # outer
+    assert rel_err(g.present_solution.cpu(), c.present_solution) <= 1e-6
+    if not mixed:
+        assert g.krylov_iters["outer"] == c.krylov_iters["outer"]
+    assert np.isfinite(g.velocity_part()).all()

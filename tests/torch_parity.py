@@ -18,6 +18,7 @@ import openifem_tpu
 from openifem_tpu.fsi import FSI as JaxFSI
 from openifem_tpu.mesh import generators as jax_generators
 from openifem_tpu.solvers.fluid import InsIM as JaxInsIM
+from openifem_tpu.solvers.fluid import InsIMEX as JaxInsIMEX
 from openifem_tpu.solvers.solid import HyperElasticity as JaxHyper
 from openifem_tpu_torch import interop
 from openifem_tpu_torch.cases.fsi_leaflet import leaflet_case, port_package
@@ -36,7 +37,8 @@ COARSE = dict(h=0.1, refinements=(0, 1))
 # the JAX package's classes, in the form leaflet_case takes a package
 JAX = SimpleNamespace(AllParameters=openifem_tpu.AllParameters,
                       generators=jax_generators, InsIM=JaxInsIM,
-                      HyperElasticity=JaxHyper, FSI=JaxFSI)
+                      InsIMEX=JaxInsIMEX, HyperElasticity=JaxHyper,
+                      FSI=JaxFSI)
 PORT = port_package()
 
 
