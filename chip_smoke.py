@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (openifem_tpu_torch) once on one CUDA GPU.
 
-    python3 chip_smoke.py [--phases 8,9,10]
+    python3 chip_smoke.py [--phases 11,12,13]
 
 Phases, one line each; any failure raises and exits non-zero before the
 last line is printed (--phases runs a subset, for development; phases 0
@@ -53,18 +53,40 @@ and 1 always run):
      configuration's preconditioner branch taken;
  10. InsIMEX at refine 3 (54,192 dofs), 5 steps: finite, and
      element_matvec_rect launched on its path.
-Phases 8-10 then hold every kernel shape they launched against its plain
-version as phase 2 does, at the path's own tables.
+ 11. the stabilised fluid family, coarse, CUDA vs CPU (rtol 1e-6, equal
+     Newton or sweep counts, f64): SCnsIM on the cylinder at refine 1
+     (1,284 dofs) for 3 steps on the coupled-stencil branch and 1 step
+     (5 Newton iterations) on the element, dense and hybrid (stencil outer
+     apply, dense Tpp) branches; SUPGInsIM and SerialSCnsIM there for 2
+     steps; SCnsEX on the acoustic duct refined once (255 dofs), 6 steps
+     through run() and through run_on_device();
+ 12. SCnsIM on the cylinder as the JAX bench runs it (18,384 dofs, f32 Tpp
+     preconditioner, Galerkin V-cycle on the B2pp blocks): host first
+     step, then warm-up and timed steps through make_on_device_stepper
+     with the BC table (--scnsim-depth warm,timed,element; default 0,1,1,
+     the JAX bench's depth is 2,4,2); then the state carried into a solver
+     with coupled_stencil = False for its timed steps, so the
+     Taylor-Hood, p->u, u->p and scalar layouts carry a SUPG step at full
+     size: every timed step converged, finite fields, the branch taken;
+ 13. SCnsEX on the acoustic duct (3,315 dofs) for 200 steps through
+     run_on_device, then the duct refined twice more (16,384 cells, 50,115
+     dofs, the time step cut by 4) for 200 steps: converged sweeps, finite
+     fields, 0 < vmax < 7, element_matvec launched at 8 x 8 and 4 x 4.
+Phases 8-13 then hold every kernel shape they launched against its plain
+version as phase 2 does, at the path's own tables.  Phase 2 also checks,
+off any path, the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p
+8 x 24) in f32 and f64.
 Phases 4, 6 and 7 print ms per coupled step, Newton and Krylov counts per
 step, launches per coupled step and peak device memory, and fail if a
 gather plan is built after the first coupled step; phases 9 and 10 print
 ms per step, dof-steps per second, Newton and Krylov counts, host
 synchronisations per step, launches per step and peak memory, and fail
-if a plan is built after the configuration's first step.  The kernels
+if a plan is built after the configuration's first step; phases 12 and
+13 print the same with their own Krylov counts.  The kernels
 count their launches per (layout, dtype, number of cells, block rows,
 block columns); the script fails if a path launched a shape that no phase
 checked.  Then a JSON line with one entry per such shape (launches summed
-over the paths of phases 4 and 6-10, and per step of each path; error and
+over the paths of phases 4 and 6-13, and per step of each path; error and
 times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
@@ -118,6 +140,17 @@ CYLINDER_RUNS = {
                one_call=False, branch=("stencil", "vcycle")),
 }
 IMEX_REFINE, IMEX_DOFS, IMEX_STEPS = 3, 54192, 5
+# SCnsIM on the cylinder (refine 3) and SCnsEX on the duct (refine 3, and
+# refined twice more)
+SCNSIM_DOFS = 18384
+# steps of phase 12 after the host first step: warm-up, timed on the
+# coupled stencil, timed on the element branch.  A step takes most of a
+# minute (about 10,000 Tpp GMRES iterations), so the default is the least
+# that drives both branches; --scnsim-depth 2,4,2 is the JAX bench's depth
+SCNSIM_WARM, SCNSIM_TIMED, SCNSIM_ELEMENT_TIMED = 0, 1, 1
+DUCT_STEPS = 200
+DUCT_RUNS = {"duct": dict(extra_refine=0, dofs=3315, cells=1024),
+             "duct_fine": dict(extra_refine=2, dofs=50115, cells=16384)}
 
 
 def say(msg):
@@ -416,6 +449,28 @@ def phase2_kernels(torch):
     for dt in (torch.float64, torch.float32):
         check_kernels(torch, "phase 2", kernel_cases(torch, fl, so, dt, gen),
                       dt, results)
+    # off any path: the 3-D Q1/Q1 shapes of the SUPG family (nlu 8, d 3,
+    # nlp 8) on a 12^3 box
+    from openifem_tpu_torch.cases.fsi_leaflet import port_package
+    pkg = port_package()
+    box = pkg.generators.subdivided_hyper_rectangle(
+        [12, 12, 12], [0, 0, 0], [1.0, 1.0, 1.0])
+    fl3 = pkg.SCnsIM(box, pkg.AllParameters(
+        dimension=3, fluid_velocity_degree=1, fluid_pressure_degree=1,
+        gravity=[0.0, 0.0, 0.0]), device="cuda")
+    fl3.coupled_stencil = False
+    fl3.setup()
+    box_layouts = {"element_matvec_taylor_hood": (32, 32),
+                   "element_matvec_p_to_u_nodeblock": (24, 8),
+                   "element_matvec_u_to_p_nodeblock": (8, 24)}
+    for dt in (torch.float64, torch.float32):
+        only = {(name, _dt_name(dt), box.n_cells, nr, nc)
+                for name, (nr, nc) in box_layouts.items()}
+        check_kernels(torch, "phase 2 (3-D)",
+                      kernel_cases(torch, fl3, None, dt, gen), dt, results,
+                      only=only)
+        _require("phase 2 (3-D)", only <= set(results),
+                 f"3-D shapes not checked: {sorted(only - set(results))}")
     cuda_ops.reset_launches()
     return results
 
@@ -888,12 +943,355 @@ def phase10_insimex(torch, results):
     return launches, per_step
 
 
+# -- the stabilised fluid family (solvers/fluid/supg.py, scnsex.py) --------
+
+def _galerkin_levels(torch, mg):
+    """The levels of a GalerkinMG as kernel_cases takes them: its blocks
+    are rebuilt per Newton iteration, so each level gets random scalar
+    blocks on the level's own dof table."""
+    from types import SimpleNamespace
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    levels = []
+    for cd, n in zip(mg.cell_dofs_k, mg.n_nodes):
+        A = torch.randn(cd.shape[0], cd.shape[1], cd.shape[1], generator=gen,
+                        device="cuda", dtype=torch.float64)
+        levels.append(SimpleNamespace(A_loc=A, n=n * mg.ncomp, ncomp=1,
+                                      cell_dofs=cd))
+    return levels
+
+
+def _scnsex_cases(torch, fl, dt, gen):
+    """SCnsEX's two operators at its own tables: the velocity block
+    (nlu d x nlu d) and the pressure block (nlp x nlp), random blocks."""
+    from openifem_tpu_torch.la import operators as ops
+    n_c = fl.mesh.n_cells
+    cases = []
+    for what, ref, cd, n in (("Av", fl.Av_loc, fl.cell_dofs_u, fl.n_u),
+                             ("Ap", fl.Ap_loc, fl.cell_dofs_p, fl.n_p)):
+        A = torch.randn(*ref.shape, generator=gen, device="cuda", dtype=dt)
+        x = torch.randn(n, generator=gen, device="cuda", dtype=dt)
+        cases.append((
+            "element_matvec", n_c, what,
+            lambda A=A, cd=cd, n=n, x=x: ops.element_matvec(A, cd, n, x),
+            lambda A=A, cd=cd, n=n, x=x: ops.element_matvec_plain(A, cd, n,
+                                                                  x)))
+    return cases
+
+
+def _check_scnsex_launched(torch, label, fl, launches, results):
+    for name_dt in sorted({k[1] for k in launches}):
+        dt = getattr(torch, name_dt)
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        check_kernels(torch, label, _scnsex_cases(torch, fl, dt, gen), dt,
+                      results, only=set(launches))
+
+
+def _timed(torch, fn, dev):
+    t0 = time.perf_counter()
+    out = fn(dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase11_coarse_supg(torch, results):
+    """The SUPG family and SCnsEX at coarse size, CUDA vs CPU, f64."""
+    from openifem_tpu_torch.cases import acoustic_duct as ad
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.la import cuda_ops
+    label = "phase 11"
+    pkg = fc.port_package()
+    all_launches = Counter()
+
+    def supg(solver, n_steps, **knobs):
+        def run(dev):
+            fl = fc.scnsim_case(pkg, refine=1, n_steps=n_steps,
+                                bench_precision=False, solver=solver,
+                                device=dev, **knobs)
+            newton = []
+            real = fl.run_one_step
+
+            def step(*a, **k):
+                real(*a, **k)
+                newton.append(fl.newton_iters)
+            fl.run_one_step = step
+            fl.run(verbose=False)
+            return fl, newton
+        return run
+
+    runs = [("SCnsIM coupled stencil", 3, supg("SCnsIM", 3),
+             ("stencil", "stencil", "galerkin")),
+            ("SCnsIM element", 1, supg("SCnsIM", 1, coupled_stencil=False),
+             ("element", "nodeblock", "galerkin")),
+            ("SCnsIM dense", 1, supg("SCnsIM", 1, coupled_stencil=False,
+                                     dense_precond=True),
+             ("element", "dense", "galerkin")),
+            ("SCnsIM hybrid", 1, supg("SCnsIM", 1, dense_precond=True,
+                                      stencil_outer_only=True),
+             ("stencil", "dense", "galerkin")),
+            ("SUPGInsIM", 2, supg("SUPGInsIM", 2),
+             ("stencil", "stencil", "galerkin")),
+            ("SerialSCnsIM", 2, supg("SerialSCnsIM", 2),
+             ("stencil", "stencil", "galerkin"))]
+    for what, n_steps, run, branch in runs:
+        cuda_ops.reset_launches()
+        (gfl, gn), t_gpu = _timed(torch, run, "cuda")
+        launches = cuda_ops.launches.copy()
+        (cfl, cn), t_cpu = _timed(torch, run, "cpu")
+        err = _rel(gfl.present_solution, cfl.present_solution)
+        serr = _rel(gfl.stress_device, cfl.stress_device)
+        ok = (err <= 1e-6 and serr <= 1e-6 and gn == cn
+              and len(gn) == n_steps
+              and set(gfl.precond_branches) == {branch}
+              and gfl.precond_branches == cfl.precond_branches)
+        say(f"{label}: coarse cylinder {what} (f64), {gfl.n_dofs} dofs, "
+            f"{n_steps} steps, CUDA vs CPU: solution rel err {err:.3e}, nodal stress "
+            f"{serr:.3e} (rtol 1e-6); Newton per step CUDA {gn} CPU {cn}; "
+            f"Krylov CUDA {gfl.krylov_iters} CPU {cfl.krylov_iters}; "
+            f"branches {dict(gfl.precond_branches)}; {t_gpu:.2f} s CUDA, "
+            f"{t_cpu:.2f} s CPU {'ok' if ok else 'FAILED'}")
+        _require(label, ok, f"{what}: CUDA and CPU runs disagree")
+        _check_launched(torch, label, gfl, launches, results,
+                        _galerkin_levels(torch, gfl._pressure_mg))
+        all_launches += launches
+
+    def duct(entry):
+        def run(dev):
+            fl = ad.duct_case(pkg, "SCnsEX", refine=1, n_steps=6, device=dev)
+            # the inlet BC dies after the third step
+            fl.set_hard_coded_boundary_condition_time(0, 2.5 * ad.TIME_STEP)
+            getattr(fl, entry)(verbose=False)
+            return fl
+        return run
+
+    for entry in ("run", "run_on_device"):
+        cuda_ops.reset_launches()
+        gfl, t_gpu = _timed(torch, duct(entry), "cuda")
+        launches = cuda_ops.launches.copy()
+        cfl, t_cpu = _timed(torch, duct(entry), "cpu")
+        err = _rel(gfl.present_solution, cfl.present_solution)
+        ok = (err <= 1e-6 and gfl.krylov_iters["sweeps"] ==
+              cfl.krylov_iters["sweeps"] and gfl.time.get_timestep() == 6
+              and not gfl.hard_coded_bcs)
+        say(f"{label}: coarse duct SCnsEX.{entry} (f64), {gfl.n_dofs} dofs, "
+            f"6 steps, the inlet BC expiring after the third, CUDA vs CPU: "
+            f"solution rel err {err:.3e} (rtol 1e-6); sweeps and CG "
+            f"iterations CUDA {gfl.krylov_iters} CPU {cfl.krylov_iters}; "
+            f"{t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+            f"{'ok' if ok else 'FAILED'}")
+        _require(label, ok, f"SCnsEX.{entry}: CUDA and CPU runs disagree")
+        _check_scnsex_launched(torch, label, gfl, launches, results)
+        all_launches += launches
+    return all_launches, {}
+
+
+def _supg_window(torch, label, what, fl, stepper, sol, stress, n_steps,
+                 start):
+    """n_steps of a SUPG stepper, one call, with the counters read around
+    it; prints the window's numbers and returns (solution, stress, worst
+    relative residual, launches per step)."""
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.utils.timer import count_host_syncs
+    k0, b0 = dict(fl.krylov_iters), sum(fl.precond_branches.values())
+    l0 = cuda_ops.launches.copy()
+    with count_host_syncs() as syncs:
+        t0 = time.perf_counter()
+        sol, stress, worst_rel, worst_it = stepper(sol, stress, n_steps,
+                                                   start)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    k = {n: v - k0[n] for n, v in fl.krylov_iters.items()}
+    solves = sum(fl.precond_branches.values()) - b0
+    per_step = {key: n / n_steps
+                for key, n in (cuda_ops.launches - l0).items()}
+    say(f"{label}: {what}: {n_steps} timed steps in {seconds:.3f} s, "
+        f"{1e3 * seconds / n_steps:.1f} ms/step, "
+        f"{fl.n_dofs * n_steps / seconds:.1f} dof-steps/s; Newton "
+        f"iterations {solves / n_steps:.2f} per step, worst {worst_it}; "
+        f"Krylov {k}, outer FGMRES per Newton iteration "
+        f"{k['outer'] / max(solves, 1):.2f}, Tpp GMRES per apply "
+        f"{k['tpp'] / max(k['applies'], 1):.2f}; host syncs per step "
+        f"{syncs['syncs'] / n_steps:.1f}; launches per step "
+        f"{ {key: round(v, 1) for key, v in sorted(per_step.items())} }; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return sol, stress, worst_rel, per_step
+
+
+def phase12_scnsim(torch, results, depth):
+    """SCnsIM on the cylinder at refine 3 with the bench knobs: the
+    coupled-stencil branch, then the element branch from the same state.
+    depth: (warm-up, timed, element-branch timed) steps."""
+    from openifem_tpu_torch import interop
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.la.stencil import PatchGrid
+    label = "phase 12"
+    pkg = fc.port_package()
+    n_warm, n_timed, n_element = depth
+    n_steps = 1 + n_warm + n_timed + n_element
+    t0 = time.perf_counter()
+    fl = fc.scnsim_case(pkg, n_steps=n_steps, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zorder = (PatchGrid._build_lattice(fl.mesh) is None
+              and fl._sys_stencil is not None)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    fl.run_one_step(True, verbose=False)          # the inflow pulse
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = (fl.newton_iters, dict(fl.krylov_iters))
+    vmax1 = fl.present_solution[:fl.n_u].max().item()
+    pmax1 = fl.present_solution[fl.n_u:].max().item()
+    builds_first = cuda_ops.plan_builds
+    # the run loop's order: advance the BC clock, then the step
+    fl.bc_time += fl.time.get_delta_t()
+    table = fl.bc_value_table(n_warm + n_timed)
+    stepper = fl.make_on_device_stepper(table)
+    t0 = time.perf_counter()
+    sol, stress, warm_rel, warm_it = stepper(
+        fl.present_solution, fl.stress_device, n_warm)
+    torch.cuda.synchronize()
+    say(f"{label}: SCnsIM {fl.mesh.n_cells} cells, {fl.n_dofs} dofs, set up "
+        f"in {setup_s:.2f} s; host first step (the inflow pulse) "
+        f"{first_s:.2f} s, Newton {first[0]}, Krylov {first[1]}, vmax "
+        f"{vmax1:.4f}, pmax {pmax1:.5f}; {n_warm}-step warm-up window "
+        f"(worst rel res {warm_rel:.3e}, Newton {warm_it}) in "
+        f"{time.perf_counter() - t0:.2f} s; z-order patches {zorder}")
+    sol, stress, worst_rel, per_step = _supg_window(
+        torch, label, "coupled stencil, stepper with the BC table (one "
+        "call)", fl, stepper, sol, stress, n_timed, n_warm)
+    launches = cuda_ops.launches.copy()
+    late_builds = cuda_ops.plan_builds - builds_first
+    tol = fl.params.fluid_tolerance
+    finite = bool(torch.isfinite(sol).all()) and \
+        bool(torch.isfinite(stress).all())
+    vmax = sol[:fl.n_u].abs().max().item()
+    branch = ("stencil", "stencil", "galerkin")
+    ok = (max(worst_rel, warm_rel) < tol and finite and zorder
+          and fl.n_dofs == SCNSIM_DOFS and late_builds == 0
+          and set(fl.precond_branches) == {branch}
+          and fl.mixed_precision_precond and not fl.f32_matrix
+          and abs(vmax1 - fc.SCNSIM_UMAX) < 1e-6 and 0 < vmax < 20)
+    say(f"{label}: worst rel res {worst_rel:.3e} (< {tol:.0e}), finite "
+        f"{finite}, max |u| {vmax:.4f} (inflow peak {fc.SCNSIM_UMAX} on the "
+        f"first step only), branches {dict(fl.precond_branches)}, plan "
+        f"builds {cuda_ops.plan_builds} ({late_builds} after the first "
+        f"step) {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "SCnsIM coupled-stencil run failed")
+    _require(label, {k[0] for k in launches} == {"element_matvec"},
+             f"layouts on the stencil branch: {sorted(launches)}")
+    _check_launched(torch, label, fl, launches, results,
+                    _galerkin_levels(torch, fl._pressure_mg))
+
+    # the element branch from the same state
+    for _ in range(n_warm + n_timed):
+        fl.time.increment()
+    fl.bc_time += (n_warm + n_timed - 1) * fl.time.get_delta_t()
+    fl.present_solution, fl.stress_device = sol, stress
+    el = fc.scnsim_case(pkg, n_steps=n_steps, device="cuda",
+                        coupled_stencil=False)
+    interop.load_fluid_state(el, interop.fluid_state(fl))
+    el.bc_time += el.time.get_delta_t()
+    table = el.bc_value_table(n_element)
+    cuda_ops.reset_launches()
+    builds0 = cuda_ops.plan_builds
+    stepper = el.make_on_device_stepper(table)
+    esol, estress, erel, el_per_step = _supg_window(
+        torch, label, "element branch (coupled_stencil = False), stepper "
+        "(one call)", el, stepper, el.present_solution, el.stress_device,
+        n_element, 0)
+    el_launches = cuda_ops.launches.copy()
+    want = {"element_matvec_taylor_hood", "element_matvec_p_to_u_nodeblock",
+            "element_matvec_u_to_p_nodeblock", "element_matvec"}
+    finite = bool(torch.isfinite(esol).all()) and \
+        bool(torch.isfinite(estress).all())
+    ok = (erel < tol and finite and el._sys_stencil is None
+          and set(el.precond_branches) == {
+              ("element", "nodeblock", "galerkin")}
+          and {k[0] for k in el_launches} == want)
+    say(f"{label}: element branch worst rel res {erel:.3e}, finite {finite}, "
+        f"branches {dict(el.precond_branches)}, layouts launched "
+        f"{sorted({k[0] for k in el_launches})}, plan builds in the window "
+        f"{cuda_ops.plan_builds - builds0} (its first steps) "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "SCnsIM element-branch run failed")
+    _check_launched(torch, label, el, el_launches, results,
+                    _galerkin_levels(torch, el._pressure_mg))
+    return {"scnsim_r3": (launches, per_step),
+            "scnsim_r3_element": (el_launches, el_per_step)}
+
+
+def phase13_scnsex(torch, results):
+    """SCnsEX on the acoustic duct through run_on_device, at the bench's
+    size and refined twice more."""
+    from openifem_tpu_torch.cases import acoustic_duct as ad
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.utils.timer import count_host_syncs
+    label = "phase 13"
+    pkg = ad.port_package()
+    out = {}
+    for name, run in DUCT_RUNS.items():
+        fl = ad.duct_case(pkg, "SCnsEX", n_steps=DUCT_STEPS,
+                          extra_refine=run["extra_refine"], device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ops.reset_launches()
+        builds0 = cuda_ops.plan_builds
+        with count_host_syncs() as syncs:
+            t0 = time.perf_counter()
+            fl.run_on_device(verbose=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = cuda_ops.launches.copy()
+        per_step = {k: n / DUCT_STEPS for k, n in launches.items()}
+        k = fl.krylov_iters
+        sol = fl.present_solution
+        finite = bool(torch.isfinite(sol).all()) and \
+            bool(torch.isfinite(fl.stress_device).all())
+        vmax = sol[:fl.n_u].max().item()
+        shapes = {(key[3], key[4]) for key in launches}
+        ok = (finite and 0 < vmax < 7 and fl.n_dofs == run["dofs"]
+              and fl.mesh.n_cells == run["cells"]
+              and fl.time.get_timestep() == DUCT_STEPS
+              and shapes == {(8, 8), (4, 4)}
+              and {key[0] for key in launches} == {"element_matvec"}
+              and cuda_ops.plan_builds - builds0 <= 2)
+        say(f"{label} {name}: SCnsEX {fl.mesh.n_cells} cells, {fl.n_dofs} "
+            f"dofs, time step {fl.time.get_delta_t():.3e}, {DUCT_STEPS} "
+            f"steps through run_on_device (set-up and BC table included) in "
+            f"{seconds:.3f} s, {1e3 * seconds / DUCT_STEPS:.2f} ms/step, "
+            f"{fl.n_dofs * DUCT_STEPS / seconds:.1f} dof-steps/s; sweeps per "
+            f"step {k['sweeps'] / DUCT_STEPS:.2f} (worst {fl.sweeps}), CG "
+            f"iterations per sweep velocity {k['vel'] / k['sweeps']:.2f} "
+            f"pressure {k['pre'] / k['sweeps']:.2f}; host syncs per step "
+            f"{syncs['syncs'] / DUCT_STEPS:.1f}; launches per step "
+            f"{ {key: round(v, 1) for key, v in sorted(per_step.items())} }; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; finite "
+            f"{finite}, vmax {vmax:.4f} (pulse peak 6.0), plan builds "
+            f"{cuda_ops.plan_builds - builds0} {'ok' if ok else 'FAILED'}")
+        _require(label, ok, f"SCnsEX {name} failed")
+        _check_scnsex_launched(torch, label, fl, launches, results)
+        out[f"scnsex_{name}"] = (launches, per_step)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 11))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 14))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
-    want = {int(p) for p in ap.parse_args().phases.split(",") if p}
+    ap.add_argument("--scnsim-depth", default=",".join(map(str, (
+        SCNSIM_WARM, SCNSIM_TIMED, SCNSIM_ELEMENT_TIMED))),
+        help="phase 12: warm-up, timed and element-branch steps after the "
+             "host first step (default: %(default)s)")
+    args = ap.parse_args()
+    want = {int(p) for p in args.phases.split(",") if p}
+    depth = tuple(int(n) for n in args.scnsim_depth.split(","))
+    if len(depth) != 3 or min(depth[1:]) < 1 or depth[0] < 0:
+        ap.error("--scnsim-depth takes warm >= 0, timed >= 1, element >= 1")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import torch
@@ -924,6 +1322,12 @@ def main():
             runs.update(phase9_cylinder(torch, checked))
         if 10 in want:
             runs["insimex_r3"] = phase10_insimex(torch, checked)
+        if 11 in want:
+            runs["coarse_supg"] = phase11_coarse_supg(torch, checked)
+        if 12 in want:
+            runs.update(phase12_scnsim(torch, checked, depth))
+        if 13 in want:
+            runs.update(phase13_scnsex(torch, checked))
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version

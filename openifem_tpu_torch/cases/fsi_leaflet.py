@@ -147,11 +147,14 @@ def port_package():
     from ..fsi import FSI
     from ..mesh import generators
     from ..parameters import AllParameters
-    from ..solvers.fluid import InsIM, InsIMEX
+    from ..solvers.fluid import (InsIM, InsIMEX, SCnsEX, SCnsIM,
+                                 SerialSCnsIM, SUPGInsIM)
     from ..solvers.solid import HyperElasticity
     return SimpleNamespace(AllParameters=AllParameters,
                            generators=generators, InsIM=InsIM,
-                           InsIMEX=InsIMEX, HyperElasticity=HyperElasticity,
+                           InsIMEX=InsIMEX, SUPGInsIM=SUPGInsIM,
+                           SCnsIM=SCnsIM, SerialSCnsIM=SerialSCnsIM,
+                           SCnsEX=SCnsEX, HyperElasticity=HyperElasticity,
                            FSI=FSI)
 
 

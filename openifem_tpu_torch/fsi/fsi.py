@@ -23,6 +23,7 @@ import torch
 from ..config import real_dtype
 from ..mesh.mesh import FACE_VERTICES
 from ..parameters import AllParameters
+from ..solvers.fluid.supg import SUPGFluidSolver
 from ..utils.timectl import Time
 from .interp import (check_cell_hash_capacity, interpolate_nodal,
                      make_cell_hash, plan_cell_hash)
@@ -138,7 +139,8 @@ class FSI:
     def _can_fuse_step(self):
         return (self.fused_coupled_stepping
                 and hasattr(self.fluid, "make_fsi_step")
-                and hasattr(self.solid, "_device_step_impl"))
+                and hasattr(self.solid, "_device_step_impl")
+                and getattr(self.fluid, "turbulence_model", None) is None)
 
     def _run_fluid_step(self, zero_ext, nonzero_ext, verbose):
         fluid = self.fluid
@@ -159,11 +161,18 @@ class FSI:
             print(f"*** Time step = {fluid.time.get_timestep()}, "
                   f"at t = {fluid.time.current():.6e} (device step)")
         ucons = fluid._u_cons_of(zero_ext)
-        sol, stress, rel, its = self._fluid_step_fn(
-            fluid.present_solution, fluid.indicator,
-            fluid.fsi_acceleration, fluid.fsi_stress_cell,
-            fluid.fsi_acc_nodal, zero_ext, nonzero_ext, ucons,
-            fluid.p_constraints)
+        if isinstance(fluid, SUPGFluidSolver):
+            sol, stress, rel, its = self._fluid_step_fn(
+                fluid.present_solution, fluid.indicator,
+                fluid.fsi_acc_nodal, fluid.fsi_stress_nodal,
+                fluid.stress_device, fluid._zero_eddy(), zero_ext,
+                nonzero_ext, ucons, fluid.p_constraints)
+        else:
+            sol, stress, rel, its = self._fluid_step_fn(
+                fluid.present_solution, fluid.indicator,
+                fluid.fsi_acceleration, fluid.fsi_stress_cell,
+                fluid.fsi_acc_nodal, zero_ext, nonzero_ext, ucons,
+                fluid.p_constraints)
         if rel > self.params.fluid_tolerance:
             raise RuntimeError("Too many Newton iterations!")
         fluid.solution_increment = sol - fluid.present_solution
@@ -200,8 +209,9 @@ class FSI:
         k = self._kernels
         fluid_step = fluid.make_fsi_step()
         n_sv, d = self._n_sv, fluid.dim
+        is_supg = isinstance(fluid, SUPGFluidSolver)
 
-        def step(s_disp, s_vel, s_acc, f_sol, f_stress):
+        def step(s_disp, s_vel, s_acc, f_sol, f_stress, fsi_stress_nodal):
             moved = self._solid_ref_verts + s_disp[:n_sv * d].reshape(n_sv,
                                                                       d)
             traction = k.solid_traction(moved, f_sol, f_stress)
@@ -220,10 +230,21 @@ class FSI:
                 fsi_acc = k.fsi_acceleration(moved2, a2, indicator)
                 zero_ext = nonzero_ext = fluid.zero_constraints
             ucons = fluid._u_cons_of(zero_ext)
-            sol2, stress2, rel, f_it = fluid_step(
-                f_sol, indicator, fsi_acc,
-                torch.zeros_like(fluid.fsi_stress_cell), acc_nodal,
-                zero_ext, nonzero_ext, ucons, fluid.p_constraints)
+            if is_supg:
+                # the SUPG family takes the nodal FSI fields and the
+                # fluid's own nodal stress; no eddy viscosity inside a
+                # coupled step
+                eddy = torch.zeros(fluid.u_space.n_nodes,
+                                   dtype=real_dtype(), device=self.device)
+                sol2, stress2, rel, f_it = fluid_step(
+                    f_sol, indicator, acc_nodal, fsi_stress_nodal,
+                    f_stress, eddy, zero_ext, nonzero_ext, ucons,
+                    fluid.p_constraints)
+            else:
+                sol2, stress2, rel, f_it = fluid_step(
+                    f_sol, indicator, fsi_acc,
+                    torch.zeros_like(fluid.fsi_stress_cell), acc_nodal,
+                    zero_ext, nonzero_ext, ucons, fluid.p_constraints)
             return (disp2, v2, a2, sol2, stress2, indicator, rel, f_it,
                     s_it, traction)
 
@@ -241,7 +262,7 @@ class FSI:
          traction) = self._coupled_step(
             solid.current_displacement, solid.current_velocity,
             solid.current_acceleration, fluid.present_solution,
-            fluid.stress_device)
+            fluid.stress_device, fluid.fsi_stress_nodal)
         if s_it >= self.params.solid_max_iterations or \
                 rel > self.params.fluid_tolerance:
             raise RuntimeError("Too many Newton iterations!")

@@ -6,7 +6,11 @@ a solver's state in the middle of a run from either package; the
 `load_*` functions write such a dict into a port solver that was set up
 on the same mesh (its precomputed tables are rebuilt from the mesh, not
 carried).  The time counters are carried too, so the next step uses the
-same step number and time.
+same step number and time.  A fluid's state also carries the clock of
+its time-dependent hard-coded BCs, which of them are still alive (SCnsEX
+lets them expire), their expiry limits and the Dirichlet values last
+built from them, so a SUPG or SCnsEX run continues from the same point in
+either package.
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ import torch
 from .config import real_dtype
 
 FLUID_FIELDS = ("present_solution", "indicator", "stress_device")
+# nodal FSI fields of the SUPG family
+FLUID_OPTIONAL = ("fsi_acc_nodal", "fsi_stress_nodal")
+# the state of the time-dependent hard-coded BCs
+BC_KEYS = ("bc_time", "bc_ids", "bc_time_limits", "dirichlet_values")
 SOLID_FIELDS = ("current_displacement", "current_velocity",
                 "current_acceleration", "previous_displacement",
                 "previous_velocity", "previous_acceleration",
@@ -37,7 +45,16 @@ def _state(solver, fields):
 
 
 def fluid_state(solver):
-    return _state(solver, FLUID_FIELDS)
+    out = _state(solver, FLUID_FIELDS)
+    for f in FLUID_OPTIONAL:
+        if hasattr(solver, f):
+            out[f] = to_numpy(getattr(solver, f))
+    out["bc_time"] = solver.bc_time
+    out["bc_ids"] = sorted(solver.hard_coded_bcs)
+    out["bc_time_limits"] = dict(getattr(solver, "bc_time_limits", {}))
+    out["dirichlet_values"] = to_numpy(
+        solver.nonzero_constraints.dirichlet_values)
+    return out
 
 
 def solid_state(solver):
@@ -58,7 +75,21 @@ def _load(solver, state, fields):
 
 
 def load_fluid_state(solver, state):
-    _load(solver, state, FLUID_FIELDS)
+    """Write a fluid state into a port solver that was set up on the same
+    mesh with the same hard-coded BCs added."""
+    _load(solver, state, FLUID_FIELDS +
+          tuple(f for f in FLUID_OPTIONAL if f in state))
+    if "bc_time" not in state:
+        return
+    solver.bc_time = state["bc_time"]
+    for bid in list(solver.hard_coded_bcs):
+        if bid not in state["bc_ids"]:
+            del solver.hard_coded_bcs[bid]          # expired
+    if state["bc_time_limits"] or hasattr(solver, "bc_time_limits"):
+        solver.bc_time_limits = dict(state["bc_time_limits"])
+    # an expired BC keeps the values of its last rebuild
+    solver.nonzero_constraints.dirichlet_values = torch.tensor(
+        state["dirichlet_values"], dtype=real_dtype(), device=solver.device)
 
 
 def load_solid_state(solver, state):

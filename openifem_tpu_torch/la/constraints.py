@@ -69,6 +69,17 @@ class Constraints:
         x = torch.where(self.dirichlet, x + self.dirichlet_values, x)
         return self._from_masters(x) if self.any_hanging else x
 
+    def apply_increment_with(self, x, values):
+        """apply_increment with caller-supplied inhomogeneities (the
+        steppers feed per-step hard-coded BC tables)."""
+        x = torch.where(self.dirichlet, x + values, x)
+        return self._from_masters(x) if self.any_hanging else x
+
+    def distribute_with_values(self, x, dirichlet_values):
+        """distribute() with caller-supplied Dirichlet values."""
+        x = torch.where(self.dirichlet, dirichlet_values, x)
+        return self._from_masters(x) if self.any_hanging else x
+
     def expand(self, x):
         """Homogeneous prolongation P x: hanging dofs from masters,
         Dirichlet dofs zeroed.  Dtype-preserving."""

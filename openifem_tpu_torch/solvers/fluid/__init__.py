@@ -1,4 +1,7 @@
 from .insim import InsIM
 from .insimex import InsIMEX
+from .scnsex import SCnsEX
+from .supg import SCnsIM, SerialSCnsIM, SUPGFluidSolver, SUPGInsIM
 
-__all__ = ["InsIM", "InsIMEX"]
+__all__ = ["InsIM", "InsIMEX", "SCnsEX", "SCnsIM", "SerialSCnsIM",
+           "SUPGFluidSolver", "SUPGInsIM"]

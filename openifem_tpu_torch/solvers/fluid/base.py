@@ -70,6 +70,35 @@ class FluidSolverBase:
             return math.inf
         return atol
 
+    def _run_newton(self, eval_pt, newton_once, floor: float):
+        """The Newton loop of one time step from `eval_pt`, with the
+        stopping rules of the JAX package's fused steps (make_fsi_step,
+        make_on_device_stepper of insim.py and supg.py), run eagerly.
+        newton_once(eval_pt, res0) -> (next eval_pt, residual norm, outer
+        Krylov iterations); res0 is None on the first iteration.  Iterates
+        while res / res0 > fluid_tolerance and res > floor, at most
+        fluid_max_iterations times, and not stagnated.  Returns (eval_pt,
+        rel_res, newton_iters); rel_res is 0 where res0 <= floor or on
+        stagnation."""
+        tol = self.params.fluid_tolerance
+        max_it = self.params.fluid_max_iterations
+
+        def stagnated(res, prev, last_its):
+            # a 0-iteration Krylov solve with a non-decreasing residual
+            # is machine-level stagnation -> treat as converged
+            return last_its == 0 and res >= prev * (1 - 1e-12)
+
+        eval_pt, res0, last_its = newton_once(eval_pt, None)
+        it, res, prev = 1, res0, math.inf
+        while (res / max(res0, 1e-300) > tol and res > floor and
+               it < max_it and not stagnated(res, prev, last_its)):
+            eval_pt, rn, last_its = newton_once(eval_pt, res0)
+            it, prev, res = it + 1, res, rn
+        rel = res / max(res0, 1e-300) if res0 > floor else 0.0
+        if stagnated(res, prev, last_its):
+            rel = 0.0
+        return eval_pt, rel, it
+
     def __init__(self, mesh, params: AllParameters,
                  bc: Optional[Callable] = None, device=None):
         """bc: hard-coded boundary-value function f(points (n,dim), component)
@@ -145,8 +174,12 @@ class FluidSolverBase:
                                             device=dev)
         self.fsi_stress_cell = torch.zeros((n_c, dim, dim), dtype=rdt,
                                            device=dev)
+        # MPI-style nodal FSI fields (reference:
+        # include/mpi_fluid_solver.h:208-212)
         self.fsi_acc_nodal = torch.zeros((self.u_space.n_nodes, dim),
                                          dtype=rdt, device=dev)
+        self.fsi_stress_nodal = torch.zeros(
+            (self.u_space.n_nodes, dim, dim), dtype=rdt, device=dev)
         # nodal viscous stress, device-resident (n_scalar_nodes, dim, dim)
         self.stress_device = torch.zeros((self.u_space.n_nodes, dim, dim),
                                          dtype=rdt, device=dev)

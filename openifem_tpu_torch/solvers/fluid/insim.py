@@ -649,30 +649,13 @@ class InsIM(FluidSolverBase):
         fluid_max_iterations times, and not stagnated.  Returns (eval_pt,
         rel_res, newton_iters); rel_res is 0 where res0 <= 1e-11 or on
         stagnation."""
-        tol = self.params.fluid_tolerance
-        max_it = self.params.fluid_max_iterations
-
-        def newton_once(eval_pt, res0=None):
+        def newton_once(eval_pt, res0):
             du, rn, its, _ = self._newton_iter_impl(
                 eval_pt, present, indicator, fsi_acc, fsi_stress,
                 fsi_acc_nodal, cons, ucons, pcons, res0=res0)
             return eval_pt + du, rn, its
 
-        def stagnated(res, prev, last_its):
-            # a 0-iteration Krylov solve with a non-decreasing residual
-            # is machine-level stagnation -> treat as converged
-            return last_its == 0 and res >= prev * (1 - 1e-12)
-
-        eval_pt, res0, last_its = newton_once(eval_pt)
-        it, res, prev = 1, res0, math.inf
-        while (res / max(res0, 1e-300) > tol and res > 1e-11 and
-               it < max_it and not stagnated(res, prev, last_its)):
-            eval_pt, rn, last_its = newton_once(eval_pt, res0)
-            it, prev, res = it + 1, res, rn
-        rel = res / max(res0, 1e-300) if res0 > 1e-11 else 0.0
-        if stagnated(res, prev, last_its):
-            rel = 0.0
-        return eval_pt, rel, it
+        return self._run_newton(eval_pt, newton_once, 1e-11)
 
     def make_on_device_stepper(self):
         """Time stepping without the host path's bookkeeping: the

@@ -436,3 +436,137 @@ def test_insimex_cuda_matches_cpu(cuda, mixed):
     if not mixed:
         assert g.krylov_iters["outer"] == c.krylov_iters["outer"]
     assert np.isfinite(g.velocity_part()).all()
+
+
+# -- the stabilised fluid family and SCnsEX: the kernel at their block
+# shapes, and each new solver coarse on the card against the same code on
+# the CPU (which tests/test_torch_supg*.py and test_torch_scnsex.py hold
+# against the JAX package).
+
+# Q1/Q1 in 2-D (nlu 4, d 2, nlp 4) and in 3-D (nlu 8, d 3, nlp 8): no
+# shape of the Taylor-Hood paths has so few columns per block
+SUPG_SHAPES = {"2d": (4, 2, 4, 5888, 6128), "3d": (8, 3, 8, 1728, 2197)}
+
+
+def _supg_cases(dev, dtype, shape):
+    nlu, d, nlp, n_c, n_n = SUPG_SHAPES[shape]
+    g = torch.Generator(device=dev).manual_seed(5)
+    nu, nl = nlu * d, nlu * d + nlp
+    un = torch.randint(0, n_n - 1, (n_c, nlu), generator=g, device=dev)
+    pd = torch.randint(0, n_n - 1, (n_c, nlp), generator=g, device=dev)
+    cd = torch.cat([(un[:, :, None] * d + torch.arange(d, device=dev))
+                    .reshape(n_c, -1), pd + n_n * d], dim=1)
+    un, pd, cd = (t.to(torch.int32).contiguous() for t in (un, pd, cd))
+    A = torch.randn(n_c, nl, nl, generator=g, device=dev, dtype=dtype)
+    x = torch.randn(n_n * (d + 1), generator=g, device=dev, dtype=dtype)
+    xu, xp = x[:n_n * d].contiguous(), x[n_n * d:].contiguous()
+    Av = torch.randn(n_c, nu, nu, generator=g, device=dev, dtype=dtype)
+    return {
+        "taylor_hood": (
+            lambda *a: ops.element_matvec_taylor_hood(*a, cell_dofs=cd),
+            ops.element_matvec_taylor_hood_plain,
+            (A, un, pd, nlu, d, n_n * d, n_n, x), (nl, nl)),
+        "p_to_u": (ops.element_matvec_p_to_u_nodeblock,
+                   ops.element_matvec_p_to_u_nodeblock_plain,
+                   (A[:, :nu, nu:].reshape(n_c, nlu, d, nlp), un, pd, n_n,
+                    xp), (nu, nlp)),
+        "u_to_p": (ops.element_matvec_u_to_p_nodeblock,
+                   ops.element_matvec_u_to_p_nodeblock_plain,
+                   (A[:, nu:, :nu].reshape(n_c, nlp, nlu, d), un, pd, n_n,
+                    xu), (nlp, nu)),
+        "scalar_pp": (ops.element_matvec, ops.element_matvec_plain,
+                      (A[:, nu:, nu:], pd, n_n, xp), (nlp, nlp)),
+        "scalar_vv": (ops.element_matvec, ops.element_matvec_plain,
+                      (Av, cd[:, :nu].contiguous(), n_n * d, xu), (nu, nu)),
+    }
+
+
+@DTYPES
+@pytest.mark.parametrize("shape", SUPG_SHAPES)
+@pytest.mark.parametrize("which", ["taylor_hood", "p_to_u", "u_to_p",
+                                   "scalar_pp", "scalar_vv"])
+def test_kernel_at_supg_shapes(cuda, which, shape, dtype):
+    """12 x 12, 8 x 4, 4 x 8, 4 x 4 and 8 x 8 blocks (2-D) and 32 x 32,
+    24 x 8, 8 x 24, 8 x 8 and 24 x 24 (3-D): the group-size rule at 4, 8,
+    12 and 24 columns and the stride checks on views of one table."""
+    kern, plain, args, block = _supg_cases(cuda, dtype, shape)[which]
+    before = cuda_ops.launches.copy()
+    y = kern(*args)
+    torch.cuda.synchronize()
+    (key, n), = (cuda_ops.launches - before).items()
+    assert n == 1 and key[3:] == block
+    assert rel_err(y, plain(*args)) <= TOL[dtype]
+    assert all(torch.equal(kern(*args), y) for _ in range(3))
+
+
+SUPG_BRANCHES = {
+    "stencil": (dict(), ("stencil", "stencil", "galerkin")),
+    "element": (dict(coupled_stencil=False),
+                ("element", "nodeblock", "galerkin")),
+    "dense": (dict(coupled_stencil=False, dense_precond=True),
+              ("element", "dense", "galerkin")),
+    "hybrid": (dict(dense_precond=True, stencil_outer_only=True),
+               ("stencil", "dense", "galerkin")),
+}
+
+
+@pytest.mark.parametrize("solver,branch", [
+    ("SCnsIM", "stencil"), ("SCnsIM", "element"), ("SCnsIM", "dense"),
+    ("SCnsIM", "hybrid"), ("SUPGInsIM", "stencil"),
+    ("SerialSCnsIM", "element")])
+def test_supg_cuda_matches_cpu(cuda, solver, branch):
+    """Two steps on the cylinder at refine 1 (f64): 1e-6 with equal Newton
+    counts; the branch taken and the layouts it launches."""
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    knobs, want = SUPG_BRANCHES[branch]
+
+    def run(dev):
+        fl = fc.scnsim_case(port_package(), refine=1, n_steps=2,
+                            bench_precision=False, solver=solver,
+                            device=dev, **knobs)
+        newton = []
+        for i in range(2):
+            if i:
+                fl.bc_time += fl.time.get_delta_t()
+                fl._make_constraints()
+            fl.run_one_step(True, verbose=False)
+            newton.append(fl.newton_iters)
+        return fl, newton
+
+    before = cuda_ops.launches.copy()
+    (g, gn), (c, cn) = _both(run)
+    launched = {k[0] for k in cuda_ops.launches - before}
+    assert gn == cn and set(g.precond_branches) == {want}
+    assert rel_err(g.present_solution.cpu(), c.present_solution) <= 1e-6
+    assert rel_err(g.stress_device.cpu(), c.stress_device) <= 1e-6
+    layouts = {"element_matvec"}                  # the V-cycle's levels
+    if want[0] == "element":
+        layouts.add("element_matvec_taylor_hood")
+    if want[1] == "nodeblock":
+        layouts |= {"element_matvec_p_to_u_nodeblock",
+                    "element_matvec_u_to_p_nodeblock"}
+    assert launched == layouts
+
+
+@pytest.mark.parametrize("entry", ["run", "run_on_device"])
+def test_scnsex_cuda_matches_cpu(cuda, entry):
+    """Six steps of the coarse duct, the inlet BC expiring after the
+    third: 1e-6, equal sweep and CG counts, element_matvec at 8 x 8 and
+    4 x 4 and nothing else."""
+    from openifem_tpu_torch.cases import acoustic_duct as ad
+
+    def run(dev):
+        fl = ad.duct_case(port_package(), "SCnsEX", refine=1, n_steps=6,
+                          device=dev)
+        fl.set_hard_coded_boundary_condition_time(0, 2.5 * ad.TIME_STEP)
+        getattr(fl, entry)(verbose=False)
+        return fl
+
+    before = cuda_ops.launches.copy()
+    g, c = _both(run)
+    new = cuda_ops.launches - before
+    assert set(new) == {("element_matvec", "float64", 64, 8, 8),
+                        ("element_matvec", "float64", 64, 4, 4)}
+    assert g.krylov_iters == c.krylov_iters
+    assert g.time.get_timestep() == 6 and not g.hard_coded_bcs
+    assert rel_err(g.present_solution.cpu(), c.present_solution) <= 1e-6

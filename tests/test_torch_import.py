@@ -25,6 +25,9 @@ def test_port_never_imports_jax():
         "             if k == 'jax' or k.startswith(('jax.', 'openifem_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'openifem_tpu_torch.fsi.fsi' in sys.modules\n"
+        "for m in ('solvers.fluid.supg', 'solvers.fluid.scnsex',\n"
+        "          'cases.acoustic_duct', 'cases.fluid_cylinder'):\n"
+        "    assert 'openifem_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     r = _run(code)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

@@ -200,7 +200,8 @@ def test_interop_round_trip_on_a_cylinder_state(solver):
     jfl, pfl = build(JAX), build(PORT, device="cpu")
     jfl.run_one_step(True, verbose=False)
     state = interop.fluid_state(jfl)
-    assert set(state) == set(interop.FLUID_FIELDS) | {"time"}
+    assert set(state) == set(interop.FLUID_FIELDS) | \
+        set(interop.FLUID_OPTIONAL) | {"time"} | set(interop.BC_KEYS)
     interop.load_fluid_state(pfl, state)
     for f in interop.FLUID_FIELDS:
         assert rel_err(getattr(pfl, f), getattr(jfl, f)) == 0, f

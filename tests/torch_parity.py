@@ -19,6 +19,10 @@ from openifem_tpu.fsi import FSI as JaxFSI
 from openifem_tpu.mesh import generators as jax_generators
 from openifem_tpu.solvers.fluid import InsIM as JaxInsIM
 from openifem_tpu.solvers.fluid import InsIMEX as JaxInsIMEX
+from openifem_tpu.solvers.fluid.scnsex import SCnsEX as JaxSCnsEX
+from openifem_tpu.solvers.fluid.supg import SCnsIM as JaxSCnsIM
+from openifem_tpu.solvers.fluid.supg import SerialSCnsIM as JaxSerialSCnsIM
+from openifem_tpu.solvers.fluid.supg import SUPGInsIM as JaxSUPGInsIM
 from openifem_tpu.solvers.solid import HyperElasticity as JaxHyper
 from openifem_tpu_torch import interop
 from openifem_tpu_torch.cases.fsi_leaflet import leaflet_case, port_package
@@ -37,7 +41,9 @@ COARSE = dict(h=0.1, refinements=(0, 1))
 # the JAX package's classes, in the form leaflet_case takes a package
 JAX = SimpleNamespace(AllParameters=openifem_tpu.AllParameters,
                       generators=jax_generators, InsIM=JaxInsIM,
-                      InsIMEX=JaxInsIMEX, HyperElasticity=JaxHyper,
+                      InsIMEX=JaxInsIMEX, SUPGInsIM=JaxSUPGInsIM,
+                      SCnsIM=JaxSCnsIM, SerialSCnsIM=JaxSerialSCnsIM,
+                      SCnsEX=JaxSCnsEX, HyperElasticity=JaxHyper,
                       FSI=JaxFSI)
 PORT = port_package()
 
@@ -180,3 +186,102 @@ def precond_check(case_kw, knobs, enable, a_branch, sm_branch):
     got, pits = precond_apply(pfl, v, True)
     assert list(pfl.precond_branches) == [(a_branch, sm_branch)]
     return rel_err(got, ref), jits, pits
+
+
+# -- the SUPG family (test_torch_supg*.py) ---------------------------------
+
+SUPG_SOLVERS = ("SUPGInsIM", "SCnsIM", "SerialSCnsIM")
+
+
+def supg_fields(n_steps=3, dt=1e-2):
+    """A small channel for the SUPG family: water-like fluid driven by a
+    moving top wall and a pressure on the inlet."""
+    never = 1e9
+    return dict(
+        simulation_type="Fluid", dimension=2, global_refinements=[0, 0],
+        end_time=n_steps * dt, time_step=dt, output_interval=never,
+        refinement_interval=never, save_interval=never,
+        gravity=[0.0, -9.8], fluid_velocity_degree=1,
+        fluid_pressure_degree=1, viscosity=0.5, fluid_rho=1.2,
+        solid_rho=3.0, fluid_max_iterations=8, fluid_tolerance=1e-6,
+        n_fluid_dirichlet_bcs=2,
+        fluid_dirichlet_bcs={2: (3, [0.0, 0.0]), 3: (3, [1.0, 0.0])},
+        n_fluid_neumann_bcs=1, fluid_neumann_bcs={0: 2.0})
+
+
+def supg_mesh(generators, local=True, nx=6, ny=4):
+    """A 2 x 0.4 channel; with `local`, cells left of x = 0.7 are refined
+    once (hanging nodes, still brick-structured)."""
+    mesh = generators.subdivided_hyper_rectangle([nx, ny], [0.0, 0.0],
+                                                 [2.0, 0.4])
+    if local:
+        mesh = mesh.refine(mesh.cell_centers()[:, 0] < 0.7)
+    return mesh
+
+
+def _body_force(points):
+    out = np.zeros_like(points)
+    out[:, 0] = 3.0 * np.sin(2.0 * points[:, 1])
+    return out
+
+
+def _sigma_pml(points):
+    return np.where(points[:, 0] > 1.5, 40.0 * (points[:, 0] - 1.5) ** 2,
+                    0.0)
+
+
+def supg_solver(port, solver="SCnsIM", local=True, fields=None, mesh=None,
+                forces=True, **knobs):
+    """A set-up SUPG-family solver of either package on the small channel
+    (the port's on the CPU), with a body force and a PML field unless
+    `forces` is False; knobs are class attributes set before setup."""
+    pkg = PORT if port else JAX
+    p = pkg.AllParameters(**(fields or supg_fields()))
+    mesh = mesh(pkg.generators) if mesh else supg_mesh(pkg.generators,
+                                                       local)
+    fl = getattr(pkg, solver)(mesh, p, **(dict(device="cpu") if port
+                                          else {}))
+    for k, v in knobs.items():
+        setattr(fl, k, v)
+    if forces:
+        fl.set_body_force(_body_force)
+        fl.set_sigma_pml_field(_sigma_pml)
+    fl.setup()
+    return fl
+
+
+def supg_seed_state(jfl, pfl, seed=5, scale=0.3):
+    """Give both solvers the same seeded mid-run state (solution, nodal
+    stress, indicator, nodal FSI fields); returns the seeded eddy
+    viscosity as a numpy array."""
+    rng = np.random.default_rng(seed)
+    n_n, d = jfl.u_space.n_nodes, jfl.dim
+    jfl.present_solution = jfl.nonzero_constraints.distribute(
+        jnp.asarray(scale * rng.normal(size=jfl.n_dofs)))
+    jfl.stress_device = jnp.asarray(0.1 * rng.normal(size=(n_n, d, d)))
+    jfl.indicator = jnp.asarray(
+        (rng.random(jfl.mesh.n_cells) < 0.2).astype(float))
+    jfl.fsi_acc_nodal = jnp.asarray(rng.normal(size=(n_n, d)))
+    jfl.fsi_stress_nodal = jnp.asarray(rng.normal(size=(n_n, d, d)))
+    interop.load_fluid_state(pfl, interop.fluid_state(jfl))
+    return 1e-2 * rng.normal(size=n_n)
+
+
+def supg_args(fl, eval_pt, eddy, port):
+    """The argument tuple of _assemble at evaluation point `eval_pt`."""
+    conv = torch.as_tensor if port else jnp.asarray
+    return (conv(np_(eval_pt)), fl.present_solution, fl.indicator,
+            fl.fsi_acc_nodal, fl.fsi_stress_nodal, fl.stress_device,
+            conv(eddy))
+
+
+def closure_vars(fn):
+    """The free variables of a closure, by name."""
+    return dict(zip(fn.__code__.co_freevars,
+                    (c.cell_contents for c in fn.__closure__ or ())))
+
+
+def jax_precond_pieces(precond):
+    """The ingredients of a JAX SUPG preconditioner, read out of its
+    closures: apply_Avp, apply_Apv, Pvv_inverse, Tpp, tpp_M."""
+    return closure_vars(closure_vars(precond.stats)["_apply"])

@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Where one time step of the port's standalone fluid goes, on one CUDA
-GPU: a cylinder configuration of cases/fluid_cylinder.py ("r3" or "r4")
-through InsIM's stepper.
+GPU: a cylinder configuration of cases/fluid_cylinder.py through its
+stepper ("r3" or "r4": InsIM; "scnsim": SCnsIM at refine 3 with the bench
+knobs, as chip_smoke.py phase 12 runs it), or "scnsex": SCnsEX on the
+acoustic duct of cases/acoustic_duct.py (3,315 dofs, phase 13).
 
     python3 tools/profile_cylinder.py [--config r4] [--steps 2]
 
 After the configuration's start (host first step or impulsive start, and
-its warm-up window, as chip_smoke.py phase 9 runs it), three windows:
+its warm-up window, as chip_smoke.py runs it), three windows:
   1. plain: `--steps` steps, host clock, one synchronise at the end;
   2. phase timers: the same window with synchronising timers around the
      solver's phases (assembly, preconditioner build, outer FGMRES, and
      inside one preconditioner apply the Mp CG, the Schur solve, B^T and
-     the inner A solve with its stencil applies).  The timers nest; each
+     the inner A solve with its stencil applies; for "scnsim" the Tpp
+     GMRES, GalerkinMG.build, its V-cycle and the coupled stencil's
+     applies; for "scnsex" the sweeps, their CGs and element matvecs).
+     The timers nest; each
      is printed as a share of the window.  Their synchronisations slow
      the window down, so the shares are read against this window's own
      time, not the plain one's;
   3. profiled: one step under torch.profiler (CPU and CUDA activities):
      device busy time (the sum of the device kernels' durations), the idle
      share 1 - busy / wall, and the kernels that take the most device time.
+     For "scnsim" the profiled window is ONE preconditioner apply at the
+     stepped state (one Tpp solve: a whole step is about a hundred times
+     that many device kernels, more than the profiler holds), for "scnsex"
+     five steps.
 Prints one JSON line per window.  Needs a CUDA device.
 """
 
@@ -55,40 +64,36 @@ class SyncTimers:
         setattr(owner, attr, timed)
         self._undo.append((owner, attr, fn))
 
+    def wrap_result(self, owner, attr, name):
+        """Time the function that owner.attr() returns (a closure built
+        per call, as GalerkinMG.build's V-cycle)."""
+        fn = getattr(owner, attr)
+
+        def build(*args, **kw):
+            holder = type("Built", (), {})()
+            holder.fn = fn(*args, **kw)
+            self.wrap(holder, "fn", name)
+            self._undo.pop()              # nothing to restore on a holder
+            return holder.fn
+        setattr(owner, attr, build)
+        self._undo.append((owner, attr, fn))
+
     def restore(self):
         for owner, attr, fn in reversed(self._undo):
             setattr(owner, attr, fn)
         self._undo.clear()
 
 
-def _window(torch, stepper, sol, n):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sol, rel, it = stepper(sol, n)
-    torch.cuda.synchronize()
-    return sol, rel, it, time.perf_counter() - t0
-
-
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default="r4", choices=("r3", "r4"))
-    ap.add_argument("--steps", type=int, default=2)
-    args = ap.parse_args()
-    sys.path.insert(0, HERE)
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: the profile is of the card")
+def _insim(torch, config):
+    """(solver, advance, timers) of an InsIM cylinder configuration after
+    its start; advance(n) steps n times and returns (worst rel res, worst
+    Newton count)."""
     import chip_smoke as cs
     from openifem_tpu_torch.cases import fluid_cylinder as fc
     from openifem_tpu_torch.la import krylov
     from openifem_tpu_torch.solvers.fluid import insim
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    run = cs.CYLINDER_RUNS[args.config]
-    fl = fc.cylinder_case(fc.port_package(), args.config, n_steps=100,
+    run = cs.CYLINDER_RUNS[config]
+    fl = fc.cylinder_case(fc.port_package(), config, n_steps=100,
                           device="cuda")
     if run["host_first"]:
         fl.run_one_step(True, verbose=False)
@@ -97,32 +102,143 @@ def main():
             fl.present_solution)
         fl.time.increment()
     stepper = fl.make_on_device_stepper()
-    sol, _, _, warm_s = _window(torch, stepper, fl.present_solution,
-                                run["warm"])
+    state = [fl.present_solution]
+
+    def advance(n):
+        state[0], rel, it = stepper(state[0], n)
+        return rel, it
+
+    def timers(tm):
+        tm.wrap(fl, "_assemble", "assemble")
+        tm.wrap(fl, "_make_preconditioner", "preconditioner build")
+        tm.wrap(krylov, "fgmres", "outer FGMRES")   # _outer_solve's import
+        tm.wrap(insim, "cg", "Mp CG (and Schur CG)")
+        tm.wrap(insim, "fgmres", "inner A FGMRES")
+        tm.wrap(insim, "element_matvec_taylor_hood", "outer Jacobian apply")
+        tm.wrap(insim, "element_matvec_p_to_u_nodeblock", "B^T apply")
+        tm.wrap(fl._pressure_mg, "vcycle", "pressure V-cycle")
+        tm.wrap(fl._u_stencil, "condensed_matvec",
+                "stencil condensed_matvec")
+    return fl, advance, timers, run["warm"], lambda: advance(1)
+
+
+def _scnsim(torch, steps):
+    """SCnsIM on the cylinder at refine 3 with the bench knobs, after the
+    host first step (the inflow pulse)."""
+    import chip_smoke as cs
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.la import krylov
+    from openifem_tpu_torch.solvers.fluid import supg
+    fl = fc.scnsim_case(fc.port_package(), n_steps=100, device="cuda")
+    fl.run_one_step(True, verbose=False)
+    fl.bc_time += fl.time.get_delta_t()
+    table = fl.bc_value_table(cs.SCNSIM_WARM + 2 * steps)
+    stepper = fl.make_on_device_stepper(table)
+    state = [fl.present_solution, fl.stress_device, 0]
+
+    def advance(n):
+        sol, stress, rel, it = stepper(state[0], state[1], n, state[2])
+        state[:] = [sol, stress, state[2] + n]
+        return rel, it
+
+    def timers(tm):
+        tm.wrap(fl, "_assemble", "assemble")
+        tm.wrap(fl, "_make_preconditioner", "preconditioner build")
+        tm.wrap_result(fl._pressure_mg, "build", "Galerkin V-cycle")
+        tm.wrap(fl._pressure_mg, "build", "GalerkinMG.build")
+        tm.wrap(krylov, "fgmres", "outer FGMRES")   # _outer_solve's import
+        tm.wrap(supg, "fgmres", "Tpp GMRES")
+        tm.wrap(fl._sys_stencil, "build_weights", "stencil build_weights")
+        tm.wrap(fl._sys_stencil, "matvec", "stencil matvec (all slices)")
+        tm.wrap(fl, "_update_stress_impl", "nodal stress update")
+
+    def one_apply():
+        """One preconditioner apply at the stepped state."""
+        sol, stress = state[0], state[1]
+        A_loc, rhs = fl._assemble(sol, sol, fl.indicator, fl.fsi_acc_nodal,
+                                  fl.fsi_stress_nodal, stress,
+                                  fl._zero_eddy())
+        b = fl.zero_constraints.condense_rhs(rhs)
+        P = fl._make_preconditioner(A_loc, fl.u_constraints,
+                                    fl.p_constraints)
+        v = b / torch.linalg.vector_norm(b)
+        P(v)                                  # warm: allocations, plans
+        torch.cuda.synchronize()
+        return lambda: P.stats(v)[1]
+    return fl, advance, timers, cs.SCNSIM_WARM, one_apply
+
+
+def _scnsex(torch, steps):
+    """SCnsEX on the acoustic duct, from rest; every window gets the rows
+    of the BC table that follow the steps already taken."""
+    from openifem_tpu_torch.cases import acoustic_duct as ad
+    from openifem_tpu_torch.solvers.fluid import scnsex
+    fl = ad.duct_case(ad.port_package(), "SCnsEX", n_steps=1000,
+                      device="cuda")
+    fl._refine_and_setup()
+    table = fl.bc_value_table(10 + 2 * steps + 5)
+    state = [fl.present_solution, 0]
+
+    def advance(n):
+        stepper = fl.make_on_device_stepper(table[state[1]:])
+        sol, rel, it = stepper(state[0], n)
+        state[:] = [sol, state[1] + n]
+        return rel, it
+
+    def timers(tm):
+        tm.wrap(fl, "_iterate_impl", "sweep")
+        tm.wrap(scnsex, "cg", "CG (velocity and pressure)")
+        tm.wrap(scnsex, "element_matvec", "element_matvec")
+        tm.wrap(scnsex, "scatter_add", "rhs scatter_add")
+    return fl, advance, timers, 10, lambda: advance(5)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="r4",
+                    choices=("r3", "r4", "scnsim", "scnsex"))
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args()
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the profile is of the card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    if args.config == "scnsim":
+        fl, advance, timers, warm, profiled = _scnsim(torch, args.steps)
+    elif args.config == "scnsex":
+        fl, advance, timers, warm, profiled = _scnsex(torch, args.steps)
+    else:
+        fl, advance, timers, warm, profiled = _insim(torch, args.config)
+
+    def window(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rel, it = advance(n)
+        torch.cuda.synchronize()
+        return rel, it, time.perf_counter() - t0
+
+    _, _, warm_s = window(warm)
     base = dict(config=args.config, dofs=fl.n_dofs, device=smi)
 
     def counts(k0):
         return {n: v - k0[n] for n, v in fl.krylov_iters.items()}
 
     k0 = dict(fl.krylov_iters)
-    sol, rel, it, plain_s = _window(torch, stepper, sol, args.steps)
+    rel, it, plain_s = window(args.steps)
     print(json.dumps(dict(base, window="plain", steps=args.steps,
                           ms_per_step=1e3 * plain_s / args.steps,
                           warm_up_s=warm_s, worst_rel=rel, newton=it,
                           krylov=counts(k0))), flush=True)
 
     tm = SyncTimers(torch)
-    tm.wrap(fl, "_assemble", "assemble")
-    tm.wrap(fl, "_make_preconditioner", "preconditioner build")
-    tm.wrap(krylov, "fgmres", "outer FGMRES")   # base._outer_solve's import
-    tm.wrap(insim, "cg", "Mp CG (and Schur CG)")
-    tm.wrap(insim, "fgmres", "inner A FGMRES")
-    tm.wrap(insim, "element_matvec_taylor_hood", "outer Jacobian apply")
-    tm.wrap(insim, "element_matvec_p_to_u_nodeblock", "B^T apply")
-    tm.wrap(fl._pressure_mg, "vcycle", "pressure V-cycle")
-    tm.wrap(fl._u_stencil, "condensed_matvec", "stencil condensed_matvec")
+    timers(tm)
     k0 = dict(fl.krylov_iters)
-    sol, rel, it, timed_s = _window(torch, stepper, sol, args.steps)
+    rel, it, timed_s = window(args.steps)
     tm.restore()
     print(json.dumps(dict(
         base, window="phase timers", steps=args.steps,
@@ -133,9 +249,17 @@ def main():
 
     from torch.profiler import ProfilerActivity, profile
     k0 = dict(fl.krylov_iters)
+    if args.config == "scnsim":
+        profiled = profiled()               # builds the preconditioner
+    what = {"scnsim": "one preconditioner apply", "scnsex": "5 steps"}.get(
+        args.config, "1 step")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sol, rel, it, prof_s = _window(torch, stepper, sol, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profiled()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
     by_name, busy_us, n_kernels = defaultdict(float), 0.0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -145,11 +269,12 @@ def main():
             n_kernels += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps(dict(
-        base, window="profiled", steps=1, wall_ms=1e3 * prof_s,
+        base, window="profiled", what=what, wall_ms=1e3 * prof_s,
         busy_ms=busy_us / 1e3, device_kernels=n_kernels,
         idle_share_profiled=1 - busy_us / 1e6 / prof_s,
-        idle_share_against_plain_step=1 - busy_us / 1e6 / (
-            plain_s / args.steps),
+        idle_share_against_plain_step=None if args.config in (
+            "scnsim", "scnsex") else 1 - busy_us / 1e6 / (
+                plain_s / args.steps),
         krylov=counts(k0),
         top_kernels_ms={n: round(us / 1e3, 2) for n, us in top})),
         flush=True)
