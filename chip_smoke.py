@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (openifem_tpu_torch) once on one CUDA GPU.
 
-    python3 chip_smoke.py [--phases 11,12,13]
+    python3 chip_smoke.py [--phases 14,15] [--wall3d-depth 1,3]
 
 Phases, one line each; any failure raises and exits non-zero before the
 last line is printed (--phases runs a subset, for development; phases 0
@@ -72,10 +72,26 @@ and 1 always run):
      run_on_device, then the duct refined twice more (16,384 cells, 50,115
      dofs, the time step cut by 4) for 200 steps: converged sweeps, finite
      fields, 0 < vmax < 7, element_matvec launched at 8 x 8 and 4 x 4.
-Phases 8-13 then hold every kernel shape they launched against its plain
-version as phase 2 does, at the path's own tables.  Phase 2 also checks,
-off any path, the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p
-8 x 24) in f32 and f64.
+ 14. the MPI-semantics coupler, coarse, CUDA vs CPU (f64, rtol 1e-6, equal
+     Newton and contact-retry counts per step): the 2-D block
+     (cases/mpi_block.py) with SharedLinearElasticity in body-force mode,
+     the same with the contact model, and SharedHyperElasticity with the
+     Dirichlet coupling, 3 steps each; the fsi-wall-3D case at the
+     truncated size (3,020 + 324 dofs), 3 steps; then each _MPIKernels
+     function and one SharedHypoElasticity RK4 step on the CPU run's
+     state (indicator and Dirichlet mask equal, the rest to 1e-12);
+ 15. fsi-wall-3D at full resolution (45,207 dofs) with the bench knobs
+     through MPIFSI.run: the host first step, a warm-up and timed coupled
+     steps (--wall3d-depth warm,timed; default 1,3, the JAX bench's depth
+     is 2,10): per timed step ms, dof-steps per second, Newton, outer
+     FGMRES and Tpp GMRES counts, host syncs and the split between the
+     solid RK4 step, the coupling kernels and the fluid Newton loop (CUDA
+     events); set-up seconds and peak memory; every step converged,
+     finite fields, covered cells and nonzero stress rows.
+Phases 8-15 then hold every kernel shape they launched against its plain
+version as phase 2 does, at the path's own tables.  Phase 2 also checks
+the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p 8 x 24) in
+f32 and f64 on a 12^3 box.
 Phases 4, 6 and 7 print ms per coupled step, Newton and Krylov counts per
 step, launches per coupled step and peak device memory, and fail if a
 gather plan is built after the first coupled step; phases 9 and 10 print
@@ -151,6 +167,12 @@ SCNSIM_WARM, SCNSIM_TIMED, SCNSIM_ELEMENT_TIMED = 0, 1, 1
 DUCT_STEPS = 200
 DUCT_RUNS = {"duct": dict(extra_refine=0, dofs=3315, cells=1024),
              "duct_fine": dict(extra_refine=2, dofs=50115, cells=16384)}
+# fsi-wall-3D: dofs at full resolution; coupled steps after the host first
+# step, warm-up and timed (the JAX bench's depth is 2, 10)
+WALL3D_DOFS = 45207
+WALL3D_WARM, WALL3D_TIMED = 1, 3
+# the reference's one-core CPU rate, dof-steps per second
+REFERENCE_DOF_STEPS = 1505
 
 
 def say(msg):
@@ -704,6 +726,15 @@ def _check_launched(torch, label, fl, launches, results, levels=()):
                       results, only=set(launches))
 
 
+def _path(launches, n_steps):
+    """(launches, launches per step) of a path that took n_steps steps."""
+    return launches, {key: n / n_steps for key, n in launches.items()}
+
+
+def _slug(what):
+    return what.lower().replace(" ", "_")
+
+
 def phase8_coarse_cylinder(torch, results):
     """InsIM's stepper and InsIMEX at refine 1, CUDA vs CPU."""
     from openifem_tpu_torch.cases import fluid_cylinder as fc
@@ -771,7 +802,9 @@ def phase8_coarse_cylinder(torch, results):
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "InsIMEX: CUDA and CPU runs disagree")
     _check_launched(torch, label, gfl, imex_launches, results)
-    return launches + imex_launches, {}
+    # the host first step and the stepper's 3; InsIMEX's 3
+    return {"coarse_cylinder": _path(launches, 4),
+            "coarse_insimex": _path(imex_launches, 3)}
 
 
 def _window_report(label, what, fl, n_steps, seconds, k0, solves, newton,
@@ -1001,7 +1034,7 @@ def phase11_coarse_supg(torch, results):
     from openifem_tpu_torch.la import cuda_ops
     label = "phase 11"
     pkg = fc.port_package()
-    all_launches = Counter()
+    paths = {}
 
     def supg(solver, n_steps, **knobs):
         def run(dev):
@@ -1053,7 +1086,7 @@ def phase11_coarse_supg(torch, results):
         _require(label, ok, f"{what}: CUDA and CPU runs disagree")
         _check_launched(torch, label, gfl, launches, results,
                         _galerkin_levels(torch, gfl._pressure_mg))
-        all_launches += launches
+        paths[f"coarse_{_slug(what)}"] = _path(launches, n_steps)
 
     def duct(entry):
         def run(dev):
@@ -1081,8 +1114,8 @@ def phase11_coarse_supg(torch, results):
             f"{'ok' if ok else 'FAILED'}")
         _require(label, ok, f"SCnsEX.{entry}: CUDA and CPU runs disagree")
         _check_scnsex_launched(torch, label, gfl, launches, results)
-        all_launches += launches
-    return all_launches, {}
+        paths[f"coarse_duct_{entry}"] = _path(launches, 6)
+    return paths
 
 
 def _supg_window(torch, label, what, fl, stepper, sol, stress, n_steps,
@@ -1278,20 +1311,243 @@ def phase13_scnsex(torch, results):
     return out
 
 
+# -- the MPI-semantics coupler (fsi/mpi_fsi.py, cases/{mpi_block,
+# fsi_wall_3d}.py) -----------------------------------------------------------
+
+def _mpi_counts(fsi):
+    return [(s["fluid_newton"], s["solid_retries"]) for s in fsi.step_log]
+
+
+def _mpi_kernel_outputs(torch, fsi, state, dev):
+    """Each _MPIKernels function and one RK4 step of the RKPM solid on
+    `state` (numpy arrays), on `dev`."""
+    t = {k: torch.as_tensor(v, device=dev) for k, v in state.items()}
+    k, so = fsi._mpi_kernels, fsi.solid
+    ind = k.indicator_all_vertices(t["x"])
+    indf = ind.to(torch.float64)
+    mask, vals = k.dirichlet_bc_mpi(t["x"], t["v"].reshape(-1))
+    return [ind, mask, vals,
+            k.fsi_stress_nodal(t["x"], t["f_stress"], t["s_stress"], indf),
+            k.fsi_acc_nodal(t["x"], t["sol"], t["v"].reshape(-1),
+                            t["acc"].reshape(-1), indf),
+            *k.solid_bc_rows(t["disp"], t["sol"], t["f_stress"]),
+            so._nodal_stress_impl(t["sigma"]),
+            *so._device_step_impl(t["x"], t["v"], t["sigma"], t["rows"])]
+
+
+def phase14_coarse_mpi(torch, results):
+    """The 2-D block configurations and the truncated wall3d, CUDA vs
+    CPU; then the coupler's kernels and the RKPM step on one state."""
+    import numpy as np
+
+    from openifem_tpu_torch.cases import fsi_wall_3d as fw
+    from openifem_tpu_torch.cases import mpi_block as mb
+    from openifem_tpu_torch.la import cuda_ops
+    label = "phase 14"
+    pkg = mb.port_package()
+    paths = {}
+
+    def block(config):
+        def run(dev):
+            fsi = mb.block_case(pkg, config, device=dev)
+            fsi.run(verbose=False)
+            return fsi
+        return run
+
+    def wall3d(dev):
+        fsi = fw.wall3d_case(pkg, reps=fw.TRUNCATED, n_steps=3,
+                             bench_precision=False, device=dev)
+        fsi.run(verbose=False)
+        return fsi
+
+    runs = [(f"block {c}", block(c)) for c in mb.CONFIGS]
+    runs.append(("wall3d truncated", wall3d))
+    for what, run in runs:
+        cuda_ops.reset_launches()
+        g, t_gpu = _timed(torch, run, "cuda")
+        launches = cuda_ops.launches.copy()
+        c, t_cpu = _timed(torch, run, "cpu")
+        errs = {name: _rel(getattr(g.fluid if f else g.solid, attr),
+                           getattr(c.fluid if f else c.solid, attr))
+                for name, f, attr in (
+                    ("fluid solution", True, "present_solution"),
+                    ("nodal stress", True, "stress_device"),
+                    ("solid displacement", False, "current_displacement"))}
+        same = _mpi_counts(g) == _mpi_counts(c)
+        ok = (same and all(e <= 1e-6 for e in errs.values())
+              and len(g.step_log) == 3
+              and (what != "block contact"
+                   or min(r for _, r in _mpi_counts(g)) >= 1)
+              and torch.equal(g.fluid.indicator.cpu(), c.fluid.indicator))
+        say(f"{label}: {what} (f64), {g.fluid.n_dofs} + {g.solid.n_dofs} "
+            f"dofs, 3 steps (coupled {[s['coupled'] for s in g.step_log]})"
+            f", CUDA vs CPU: " + ", ".join(f"{k} rel err {v:.3e}"
+                                           for k, v in errs.items())
+            + f" (rtol 1e-6); (Newton, retries) per step CUDA "
+            f"{_mpi_counts(g)} CPU {_mpi_counts(c)}; covered cells "
+            f"{int(g.fluid.indicator.sum().item())}; launches "
+            f"{dict(launches)}; {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+            f"{'ok' if ok else 'FAILED'}")
+        _require(label, ok, f"{what}: CUDA and CPU runs disagree")
+        fe_solid = g.solid if hasattr(g.solid, "cell_dofs") else None
+        for name_dt in sorted({k[1] for k in launches}):
+            dt = getattr(torch, name_dt)
+            gen = torch.Generator(device="cuda").manual_seed(83)
+            check_kernels(torch, label,
+                          kernel_cases(torch, g.fluid, fe_solid, dt, gen),
+                          dt, results, only=set(launches))
+        paths[f"coarse_mpi_{_slug(what)}"] = _path(launches, 3)
+
+    # the coupler's kernels and one RK4 step on the CPU run's state
+    so, fl = c.solid, c.fluid
+    rng = np.random.default_rng(14)
+    d = so.dim
+    state = dict(
+        x=so.x.numpy(), v=so.v.numpy(), acc=so._acc.numpy(),
+        sigma=so.sigma.numpy(), rows=so.fsi_stress_rows.numpy(),
+        disp=so.current_displacement.numpy(),
+        sol=fl.present_solution.numpy(), f_stress=fl.stress_device.numpy(),
+        s_stress=so._nodal_stress_impl(so.sigma).numpy()
+        + rng.normal(size=(so.n_p, d, d)))
+    got = _mpi_kernel_outputs(torch, g, state, "cuda")
+    ref = _mpi_kernel_outputs(torch, c, state, "cpu")
+    names = ("indicator", "Dirichlet mask", "Dirichlet values",
+             "fsi_stress_nodal", "fsi_acc_nodal", "solid_bc_rows rows",
+             "solid_bc_rows p", "solid_bc_rows u", "_nodal_stress_impl",
+             "RK4 x", "RK4 v", "RK4 sigma", "RK4 acc")
+    equal = [torch.equal(a.cpu(), b) for a, b in zip(got[:2], ref[:2])]
+    errs = [_rel(a, b) if b.abs().max() > 0 else
+            (a.cpu() - b).abs().max().item()
+            for a, b in zip(got[2:], ref[2:])]
+    ok = all(equal) and all(e <= 1e-12 for e in errs) and bool(ref[0].any())
+    say(f"{label}: _MPIKernels and the RKPM RK4 step on the truncated "
+        f"wall3d's CPU state, CUDA vs CPU: " + ", ".join(
+            [f"{n} equal {e}" for n, e in zip(names, equal)]
+            + [f"{n} rel err {e:.3e}" for n, e in zip(names[2:], errs)])
+        + f" (rtol 1e-12) {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the coupler's kernels disagree")
+    return paths
+
+
+def phase15_wall3d(torch, results, depth):
+    """fsi-wall-3D at full resolution with the bench knobs, through
+    MPIFSI.run, with the launch counts zeroed just before and read just
+    after."""
+    from openifem_tpu_torch.cases import fsi_wall_3d as fw
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.utils.timer import DeviceSpans, count_host_syncs
+    label = "phase 15"
+    n_warm, n_timed = depth
+    n_steps = 1 + n_warm + n_timed
+    fsi = fw.wall3d_case(fw.port_package(), full_res=True, n_steps=n_steps,
+                         device="cuda")
+    # device time of the coupled step's solid RK4, coupling and fluid parts
+    fsi.step_span = spans = DeviceSpans()
+    per_step, real = [], fsi.run_one_coupled_step
+
+    def coupled(*args, **kw):
+        s0 = syncs["syncs"]
+        k0 = dict(fsi.fluid.krylov_iters)
+        l0 = cuda_ops.launches.copy()
+        t0 = time.perf_counter()
+        real(*args, **kw)
+        torch.cuda.synchronize()
+        per_step.append(dict(
+            seconds=time.perf_counter() - t0, syncs=syncs["syncs"] - s0,
+            newton=fsi.fluid.newton_iters, spans=spans.ms(),
+            krylov={n: v - k0[n] for n, v in fsi.fluid.krylov_iters.items()},
+            launches=cuda_ops.launches - l0))
+    fsi.run_one_coupled_step = coupled
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    with count_host_syncs() as syncs:
+        fsi.run(verbose=False)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = cuda_ops.launches.copy()
+    peak = torch.cuda.max_memory_allocated()
+    fl, so = fsi.fluid, fsi.solid
+    n_dofs = fl.n_dofs + so.n_dofs
+    first = fsi.step_log[0]
+    setup_s = total - sum(s["seconds"] for s in fsi.step_log)
+    say(f"{label}: fsi-wall-3D {fl.mesh.n_cells} fluid cells ({fl.n_u} + "
+        f"{fl.n_p} dofs), {so.mesh.n_cells} solid cells ({so.n_p} particles"
+        f", {so.n_dofs} dofs, K {so.idx_q.shape[1]}): {n_dofs} dofs; set up "
+        f"in {setup_s:.2f} s; host first step {1e3 * first['seconds']:.1f} "
+        f"ms, Newton {first['fluid_newton']}, Krylov {first['krylov']}; "
+        f"peak device memory {peak / 2**20:.1f} MiB")
+    for i, s in enumerate(per_step):
+        k = s["krylov"]
+        sp = s["spans"]
+        timed = i >= n_warm
+        say(f"{label}: {'timed' if timed else 'warm-up'} coupled step "
+            f"{i + 1}: {1e3 * s['seconds']:.1f} ms, "
+            f"{n_dofs / s['seconds']:.1f} dof-steps/s (reference CPU "
+            f"{REFERENCE_DOF_STEPS}); Newton {s['newton']}, outer FGMRES "
+            f"{k['outer']} ({k['outer'] / max(s['newton'], 1):.2f} per "
+            f"Newton iteration), Tpp GMRES per apply "
+            f"{k['tpp'] / max(k['applies'], 1):.2f}; host syncs "
+            f"{s['syncs']}; device spans solid RK4 "
+            f"{sp.get('solid RK4', 0):.2f} ms, coupling "
+            f"{sp.get('coupling', 0):.2f} ms, fluid Newton "
+            f"{sp.get('fluid Newton', 0):.2f} ms; launches "
+            f"{dict(s['launches'])}")
+    timed = per_step[n_warm:]
+    ms = [1e3 * s["seconds"] for s in timed]
+    t_per = {key: n / len(timed) for key, n in
+             sum((s["launches"] for s in timed), Counter()).items()}
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        fl.present_solution, fl.stress_device, so.x, so.v, so.sigma))
+    covered = int(fl.indicator.sum().item())
+    rows = so.fsi_stress_rows.abs().max().item()
+    vmax = fl.present_solution[:fl.n_u].abs().max().item()
+    ok = (n_dofs == WALL3D_DOFS and finite and covered > 0 and rows > 0
+          and len(per_step) == n_warm + n_timed
+          and [s["coupled"] for s in fsi.step_log] ==
+          [False] + [True] * (n_warm + n_timed)
+          and fl.tpp_branch() == "dense" and fl.outer_branch() == "element"
+          and so.f32_rates and fl.f32_matrix)
+    say(f"{label}: {len(timed)} timed steps, {statistics.mean(ms):.1f} "
+        f"ms/step mean, {statistics.median(ms):.1f} median, "
+        f"{n_dofs * len(ms) / (sum(ms) / 1e3):.1f} dof-steps/s; every step "
+        f"converged; finite {finite}, max |u| {vmax:.4f}, covered cells "
+        f"{covered}, max |fsi_stress_rows| {rows:.4e}; branches "
+        f"{dict(fl.precond_branches)} {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "fsi-wall-3D failed")
+    _check_launched(torch, label, fl, launches, results)
+    return launches, t_per
+
+
+def _run_phase(n, fn, *args):
+    """fn(*args), then one line with the phase's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"phase {n}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 14))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 16))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
     ap.add_argument("--scnsim-depth", default=",".join(map(str, (
         SCNSIM_WARM, SCNSIM_TIMED, SCNSIM_ELEMENT_TIMED))),
         help="phase 12: warm-up, timed and element-branch steps after the "
              "host first step (default: %(default)s)")
+    ap.add_argument("--wall3d-depth", default=f"{WALL3D_WARM},{WALL3D_TIMED}",
+                    help="phase 15: warm-up and timed coupled steps after "
+                         "the host first step (default: %(default)s)")
     args = ap.parse_args()
     want = {int(p) for p in args.phases.split(",") if p}
     depth = tuple(int(n) for n in args.scnsim_depth.split(","))
     if len(depth) != 3 or min(depth[1:]) < 1 or depth[0] < 0:
         ap.error("--scnsim-depth takes warm >= 0, timed >= 1, element >= 1")
+    wall3d_depth = tuple(int(n) for n in args.wall3d_depth.split(","))
+    if len(wall3d_depth) != 2 or wall3d_depth[0] < 0 or wall3d_depth[1] < 1:
+        ap.error("--wall3d-depth takes warm >= 0, timed >= 1")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import torch
@@ -1303,31 +1559,42 @@ def main():
     # the solids write their first-step VTU output to the working directory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         os.chdir(work)
-        phase1_build()
+        _run_phase(1, phase1_build)
         if 2 in want:
-            checked = phase2_kernels(torch)
+            checked = _run_phase(2, phase2_kernels, torch)
         if 3 in want:
-            phase3_coarse(torch)
+            _run_phase(3, phase3_coarse, torch)
         if 4 in want:
-            runs["element"] = phase4_full(torch)
+            runs["element"] = _run_phase(4, phase4_full, torch)
         if 5 in want:
-            phase5_coarse_bench(torch)
+            _run_phase(5, phase5_coarse_bench, torch)
         if 6 in want:
-            runs["fsi_leaflet"] = phase6_path_a(torch)
+            runs["fsi_leaflet"] = _run_phase(6, phase6_path_a, torch)
         if 7 in want:
-            runs["fsi_leaflet_r2"] = phase7_path_b(torch, checked)
+            runs["fsi_leaflet_r2"] = _run_phase(7, phase7_path_b, torch,
+                                               checked)
         if 8 in want:
-            runs["coarse_cylinder"] = phase8_coarse_cylinder(torch, checked)
+            runs.update(_run_phase(8, phase8_coarse_cylinder, torch,
+                                   checked))
         if 9 in want:
-            runs.update(phase9_cylinder(torch, checked))
+            runs.update(_run_phase(9, phase9_cylinder, torch, checked))
         if 10 in want:
-            runs["insimex_r3"] = phase10_insimex(torch, checked)
+            runs["insimex_r3"] = _run_phase(10, phase10_insimex, torch,
+                                           checked)
         if 11 in want:
-            runs["coarse_supg"] = phase11_coarse_supg(torch, checked)
+            runs.update(_run_phase(11, phase11_coarse_supg, torch,
+                                   checked))
         if 12 in want:
-            runs.update(phase12_scnsim(torch, checked, depth))
+            runs.update(_run_phase(12, phase12_scnsim, torch, checked,
+                                   depth))
         if 13 in want:
-            runs.update(phase13_scnsex(torch, checked))
+            runs.update(_run_phase(13, phase13_scnsex, torch, checked))
+        if 14 in want:
+            runs.update(_run_phase(14, phase14_coarse_mpi, torch,
+                                   checked))
+        if 15 in want:
+            runs["wall3d"] = _run_phase(15, phase15_wall3d, torch, checked,
+                                       wall3d_depth)
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version
@@ -1341,9 +1608,11 @@ def main():
     kernels = [dict(name=f"{name}[{dt}, {n_c} cells, {nr}x{nc}]",
                     route="cuda", source=SOURCE, replaces=REPLACES,
                     launches=n,
+                    # measured on each path that launched the shape
                     launches_per_step={
-                        path: per_step.get(key, 0.0)
-                        for path, (_, per_step) in runs.items()},
+                        path: per_step[key]
+                        for path, (_, per_step) in runs.items()
+                        if key in per_step},
                     **{k: v for k, v in checked[key].items() if k != "rel"})
                for key, n in sorted(launched.items())
                for name, dt, n_c, nr, nc in [key]]

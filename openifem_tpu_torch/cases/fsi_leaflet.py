@@ -144,18 +144,19 @@ def port_package():
     """The port's classes, in the form `leaflet_case` takes a package."""
     from types import SimpleNamespace
 
-    from ..fsi import FSI
+    from ..fsi import FSI, MPIFSI
     from ..mesh import generators
     from ..parameters import AllParameters
+    from ..solvers import solid
     from ..solvers.fluid import (InsIM, InsIMEX, SCnsEX, SCnsIM,
                                  SerialSCnsIM, SUPGInsIM)
-    from ..solvers.solid import HyperElasticity
     return SimpleNamespace(AllParameters=AllParameters,
                            generators=generators, InsIM=InsIM,
                            InsIMEX=InsIMEX, SUPGInsIM=SUPGInsIM,
                            SCnsIM=SCnsIM, SerialSCnsIM=SerialSCnsIM,
-                           SCnsEX=SCnsEX, HyperElasticity=HyperElasticity,
-                           FSI=FSI)
+                           SCnsEX=SCnsEX, FSI=FSI, MPIFSI=MPIFSI,
+                           **{name: getattr(solid, name)
+                              for name in solid.__all__})
 
 
 def leaflet_case(pkg, config: str = "fsi_leaflet", h: float = 0.05,

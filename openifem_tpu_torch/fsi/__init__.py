@@ -1,3 +1,4 @@
 from .fsi import FSI
+from .mpi_fsi import MPIFSI
 
-__all__ = ["FSI"]
+__all__ = ["FSI", "MPIFSI"]

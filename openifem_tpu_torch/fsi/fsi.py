@@ -182,12 +182,15 @@ class FSI:
         fluid._end_of_step_io()
 
     # ------------------------------------------------------------------
-    def _fluid_constraints(self, moved, solid_vel, f_sol, base):
+    def _fluid_constraints(self, moved, solid_vel, f_sol, base,
+                           dirichlet_bc=None):
         """Dirichlet coupling: FSI velocity constraints at covered fluid
-        support points.  The inhomogeneity is the velocity DELTA
-        (v_solid - present).  Returns (zero_ext, nonzero_ext)."""
+        support points (from `dirichlet_bc`, default the serial kernel's).
+        The inhomogeneity is the velocity DELTA (v_solid - present).
+        Returns (zero_ext, nonzero_ext)."""
         fluid = self.fluid
-        mask_u, vals_u = self._kernels.dirichlet_bc(moved, solid_vel)
+        dirichlet_bc = dirichlet_bc or self._kernels.dirichlet_bc
+        mask_u, vals_u = dirichlet_bc(moved, solid_vel)
         n = fluid.n_dofs
         mask = torch.zeros(n, dtype=torch.bool, device=self.device)
         mask[:fluid.n_u] = mask_u.reshape(-1)
@@ -323,21 +326,27 @@ class FSI:
     # ------------------------------------------------------------------
     def save_checkpoint(self):
         raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def load_checkpoint(self) -> bool:
         raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def refine_mesh(self, min_level: int, max_level: int,
                     verbose: bool = False):
         raise NotImplementedError(
             "FSI interface refinement is not ported yet (ROADMAP.md queue "
-            "1: AMR and checkpoints)")
+            "1 item 5: AMR and checkpoints)")
 
     # ------------------------------------------------------------------
+    def _run_solid_step(self, first_step: bool) -> int:
+        """Advance the solid one step on the per-phase path; returns the
+        number of retries (the serial coupler makes none)."""
+        self.solid.run_one_step(first_step)
+        return 0
+
     def run(self, verbose: bool = True):
         """reference: source/fsi.cpp:459-516."""
         params = self.params
@@ -357,13 +366,15 @@ class FSI:
             self.refine_mesh(gr, gr + 1, verbose=verbose)
 
         if verbose:
-            print(f"FSI: fluid cells/dofs [{self.fluid.mesh.n_cells}, "
+            print(f"{type(self).__name__}: fluid cells/dofs "
+                  f"[{self.fluid.mesh.n_cells}, "
                   f"{self.fluid.n_dofs}], solid cells/dofs "
                   f"[{self.solid.mesh.n_cells}, {self.solid.n_dofs}]")
 
         from ..utils.timer import Timer
-        self.timer = Timer("FSI")
-        # one entry per step: path taken, Newton and Krylov counts, time
+        self.timer = Timer(type(self).__name__)
+        # one entry per step: path taken, Newton, retry and Krylov counts,
+        # time
         self.step_log = []
         krylov = getattr(self.fluid, "krylov_iters", {})
         first_step = True
@@ -371,6 +382,7 @@ class FSI:
             t0 = time.perf_counter()
             k0 = dict(krylov)
             coupled = not first_step and self._can_fuse_step()
+            retries = 0
             if coupled:
                 with self.timer.scope("Coupled device step"):
                     self.run_one_coupled_step(verbose)
@@ -378,7 +390,7 @@ class FSI:
                 with self.timer.scope("Find solid BC"):
                     self.find_solid_bc()
                 with self.timer.scope("Run solid solver"):
-                    self.solid.run_one_step(first_step)
+                    retries = self._run_solid_step(first_step)
                 with self.timer.scope("Update indicator"):
                     self.update_solid_box_and_indicator()
                 with self.timer.scope("Find fluid BC"):
@@ -390,8 +402,8 @@ class FSI:
                 torch.cuda.synchronize(self.device)
             self.step_log.append(dict(
                 step=self.time.get_timestep() + 1, coupled=coupled,
-                solid_newton=self.solid.newton_iters,
-                fluid_newton=self.fluid.newton_iters,
+                solid_newton=getattr(self.solid, "newton_iters", None),
+                fluid_newton=self.fluid.newton_iters, solid_retries=retries,
                 krylov={k: v - k0[k] for k, v in krylov.items()},
                 seconds=time.perf_counter() - t0))
             self.time.increment()
@@ -482,6 +494,7 @@ class _FSIKernels:
             n = n * torch.where(sign == 0, 1.0, sign)[:, None]
             return torch.einsum("fab,fb->fa", sigma, n)
 
+        self.points_in_solid = points_in_solid
         self.indicator = indicator
         self.fsi_acceleration = fsi_acceleration
         self.dirichlet_bc = dirichlet_bc

@@ -2,7 +2,9 @@
 port) as numpy arrays.
 
 `fluid_state(solver)` / `solid_state(solver)` read the fields that define
-a solver's state in the middle of a run from either package; the
+a solver's state in the middle of a run from either package (for a solid,
+the Newmark vectors of an FE solid or the particles of an RKPM one, and a
+shared solid's nodal stress rows); the
 `load_*` functions write such a dict into a port solver that was set up
 on the same mesh (its precomputed tables are rebuilt from the mesh, not
 carried).  The time counters are carried too, so the next step uses the
@@ -29,6 +31,11 @@ SOLID_FIELDS = ("current_displacement", "current_velocity",
                 "current_acceleration", "previous_displacement",
                 "previous_velocity", "previous_acceleration",
                 "fsi_traction")
+# the nodal fluid stress rows of a shared (FSI-side) solid
+SOLID_OPTIONAL = ("fsi_stress_rows",)
+# the particle state of an RKPM solid (HypoElasticity); its FE-facing
+# vectors follow from it
+RKPM_FIELDS = ("x", "v", "sigma", "_acc")
 
 
 def to_numpy(a):
@@ -58,7 +65,21 @@ def fluid_state(solver):
 
 
 def solid_state(solver):
-    return _state(solver, SOLID_FIELDS)
+    """The state of a solid of either package: the Newmark vectors of an
+    FE solid, or the particle state of an RKPM one (whose `_acc` the JAX
+    package sets on its first step), and a shared solid's stress rows."""
+    if hasattr(solver, "sigma"):
+        out = {f: to_numpy(getattr(solver, f)) for f in RKPM_FIELDS[:3]}
+        acc = getattr(solver, "_acc", None)
+        out["_acc"] = (np.zeros_like(out["v"]) if acc is None
+                       else to_numpy(acc))
+        out["time"] = (solver.time.timestep, solver.time.time_current)
+    else:
+        out = _state(solver, SOLID_FIELDS)
+    for f in SOLID_OPTIONAL:
+        if hasattr(solver, f):
+            out[f] = to_numpy(getattr(solver, f))
+    return out
 
 
 def _load(solver, state, fields):
@@ -93,4 +114,11 @@ def load_fluid_state(solver, state):
 
 
 def load_solid_state(solver, state):
-    _load(solver, state, SOLID_FIELDS)
+    """Write a solid state (solid_state's dict) into a port solver set up
+    on the same mesh."""
+    optional = tuple(f for f in SOLID_OPTIONAL if f in state)
+    if "sigma" in state:
+        _load(solver, state, RKPM_FIELDS + optional)
+        solver._sync()
+    else:
+        _load(solver, state, SOLID_FIELDS + optional)

@@ -309,19 +309,19 @@ class FluidSolverBase:
     def refine_mesh(self, min_level: int, max_level: int,
                     verbose: bool = False):
         raise NotImplementedError(
-            "fluid AMR is not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "fluid AMR is not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def save_checkpoint(self, step: Optional[int] = None,
                         prefix: str = "fluid"):
         raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def load_checkpoint(self, prefix: str = "fluid") -> bool:
         raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def output_results(self, step: Optional[int] = None,
                        prefix: str = "fluid"):

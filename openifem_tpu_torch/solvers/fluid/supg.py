@@ -54,7 +54,7 @@ ATM = 1013250.0         # reference: source/mpi_scnsim.cpp:125
 KAPPA_S = 1e4           # reference: source/mpi_scnsim.cpp:126
 
 _TURBULENCE = ("the Spalart-Allmaras model is not ported yet (ROADMAP.md "
-               "queue 1: Turbulence)")
+               "queue 1 item 4: Turbulence)")
 
 es = torch.einsum
 

@@ -1,3 +1,8 @@
 from .hyper import HyperElasticity
+from .hypo import HypoElasticity, SharedHypoElasticity
+from .linear import LinearElasticity
+from .shared import SharedHyperElasticity, SharedLinearElasticity
 
-__all__ = ["HyperElasticity"]
+__all__ = ["LinearElasticity", "HyperElasticity", "HypoElasticity",
+           "SharedHypoElasticity", "SharedLinearElasticity",
+           "SharedHyperElasticity"]

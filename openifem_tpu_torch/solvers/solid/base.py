@@ -175,19 +175,19 @@ class SolidSolverBase:
 
     def refine_mesh(self, min_level: int, max_level: int):
         raise NotImplementedError(
-            "solid AMR is not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "solid AMR is not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def save_checkpoint(self, step: Optional[int] = None,
                         prefix: str = "solid"):
         raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def load_checkpoint(self, prefix: str = "solid") -> bool:
         raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1: AMR and "
-            "checkpoints)")
+            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
+            "and checkpoints)")
 
     def _end_of_step_io(self, first_step: bool = False,
                         refine_levels=None, guard_refine: bool = True):

@@ -1,14 +1,16 @@
 """Solid material models as pure functions over batched deformation state.
 
 Counterpart of openifem_tpu/solvers/solid/materials.py (reference:
-include/neo_hookean.h, include/kirchhoff_elastic_material.h,
-source/hyper_elastic_material.cpp).  Volumetric energy
+include/linear_elastic_material.h, include/neo_hookean.h,
+include/kirchhoff_elastic_material.h, source/hyper_elastic_material.cpp).
+The two linear tensors are host numpy, built once at set-up.  Volumetric energy
 0.5*kappa*(J-1)^2 and the dim-dependent isochoric split
 F_iso = J^(-1/dim) F, as deal.II's Physics::Elasticity does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...la.smalltensor import det as _det
@@ -18,6 +20,24 @@ def lame_parameters(E: float, nu: float):
     lam = E * nu / ((1 + nu) * (1 - 2 * nu))
     mu = E / (2 * (1 + nu))
     return lam, mu
+
+
+def linear_elasticity_tensor(E: float, nu: float, dim: int) -> np.ndarray:
+    """Rank-4 elasticity tensor C_{ijkl} = mu(d_ik d_jl + d_il d_jk)
+    + lambda d_ij d_kl
+    (reference: source/linear_elastic_material.cpp:17-38)."""
+    lam, mu = lame_parameters(E, nu)
+    I = np.eye(dim)
+    return (mu * (np.einsum("ik,jl->ijkl", I, I) +
+                  np.einsum("il,jk->ijkl", I, I)) +
+            lam * np.einsum("ij,kl->ijkl", I, I))
+
+
+def viscosity_tensor(eta: float, dim: int) -> np.ndarray:
+    """reference: source/linear_elastic_material.cpp:40-61."""
+    I = np.eye(dim)
+    return (eta / 2) * (np.einsum("ik,jl->ijkl", I, I) +
+                        np.einsum("il,jk->ijkl", I, I))
 
 
 def _standard_tensors(dim: int, dtype, device):

@@ -52,6 +52,36 @@ class Timer:
         print(self.summary())
 
 
+class DeviceSpans:
+    """Named spans timed with CUDA events, for a span hook such as
+    MPIFSI.step_span: `with spans("name"): ...` records an event pair on
+    the current stream without synchronising; ms() waits for the device
+    and returns the summed milliseconds per name, then forgets them."""
+
+    def __init__(self):
+        self._events = defaultdict(list)
+
+    @contextmanager
+    def __call__(self, name: str):
+        import torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self._events[name].append((start, end))
+
+    def ms(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        out = {name: sum(a.elapsed_time(b) for a, b in pairs)
+               for name, pairs in self._events.items()}
+        self._events.clear()
+        return out
+
+
 # the tensor methods through which the port reads a device value on the
 # host; each waits for the device to finish the work queued before it
 _SYNC_METHODS = ("item", "cpu", "tolist", "__bool__", "__float__",

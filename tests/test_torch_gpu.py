@@ -570,3 +570,93 @@ def test_scnsex_cuda_matches_cpu(cuda, entry):
     assert g.krylov_iters == c.krylov_iters
     assert g.time.get_timestep() == 6 and not g.hard_coded_bcs
     assert rel_err(g.present_solution.cpu(), c.present_solution) <= 1e-6
+
+
+# -- the MPI coupler and the FSI-side solids --------------------------------
+
+@pytest.mark.parametrize("config", ["body_force", "contact", "dirichlet",
+                                    "wall3d"])
+def test_mpi_fsi_cuda_matches_cpu(cuda, config, tmp_path, monkeypatch):
+    """Three MPIFSI.run steps (f64) of the 2-D block configurations and
+    the truncated wall3d: 1e-6 with equal Newton and retry counts; the
+    RKPM solid's RK4 state too."""
+    from openifem_tpu_torch.cases.fsi_wall_3d import TRUNCATED, wall3d_case
+    from openifem_tpu_torch.cases.mpi_block import block_case
+    monkeypatch.chdir(tmp_path)      # the RKPM solid writes VTU on step 1
+
+    def run(dev):
+        if config == "wall3d":
+            fsi = wall3d_case(port_package(), reps=TRUNCATED, n_steps=3,
+                              bench_precision=False, device=dev)
+        else:
+            fsi = block_case(port_package(), config, device=dev)
+        fsi.run(verbose=False)
+        return fsi
+
+    g, c = _both(run)
+    counts = [[(s["fluid_newton"], s["solid_retries"]) for s in f.step_log]
+              for f in (g, c)]
+    assert counts[0] == counts[1] and len(counts[0]) == 3
+    pairs = [(g.fluid.present_solution, c.fluid.present_solution),
+             (g.fluid.stress_device, c.fluid.stress_device),
+             (g.solid.current_displacement, c.solid.current_displacement)]
+    if config == "wall3d":
+        pairs.append((g.solid.sigma, c.solid.sigma))
+        assert torch.equal(g.fluid.indicator.cpu(), c.fluid.indicator)
+    for a, b in pairs:
+        assert rel_err(a.cpu(), b) <= 1e-6
+
+
+def test_mpi_kernels_and_rk4_cuda_match_cpu(cuda):
+    """Each _MPIKernels function and one SharedHypoElasticity RK4 step on
+    a seeded state of the truncated wall3d: the indicator and the
+    Dirichlet mask equal, the rest within 1e-12 (the particle scatters
+    are atomics on CUDA)."""
+    from openifem_tpu_torch.cases.fsi_wall_3d import TRUNCATED, wall3d_case
+
+    def setup(dev):
+        fsi = wall3d_case(port_package(), reps=TRUNCATED,
+                          bench_precision=False, device=dev)
+        gr = fsi.params.global_refinements
+        fsi.solid.mesh = fsi.solid.mesh.refine_global(gr[1])
+        fsi.solid.setup()
+        fsi.fluid.setup()
+        fsi._setup_coupling()
+        return fsi
+
+    g, c = _both(setup)
+    rng = np.random.default_rng(5)
+    so = c.solid
+    d = so.dim
+    seeds = dict(
+        moved=so.x.numpy() + 0.01 * rng.normal(size=so.x.shape),
+        sol=0.3 * rng.normal(size=c.fluid.n_dofs),
+        f_stress=rng.normal(size=(c.fluid.u_space.n_nodes, d, d)),
+        vel=rng.normal(size=so.n_p * d), acc=rng.normal(size=so.n_p * d),
+        s_stress=rng.normal(size=(so.n_p, d, d)),
+        disp=0.01 * rng.normal(size=so.n_p * d),
+        sigma=50.0 * rng.normal(size=so.sigma.shape),
+        rows=1e2 * rng.normal(size=(so.n_p, d, d)))
+
+    def outputs(fsi, dev):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in seeds.items()}
+        k = fsi._mpi_kernels
+        ind = k.indicator_all_vertices(t["moved"])
+        indf = ind.to(torch.float64)
+        mask, vals = k.dirichlet_bc_mpi(t["moved"], t["vel"])
+        return [ind, mask, vals,
+                k.fsi_stress_nodal(t["moved"], t["f_stress"],
+                                   t["s_stress"], indf),
+                k.fsi_acc_nodal(t["moved"], t["sol"], t["vel"], t["acc"],
+                                indf),
+                *k.solid_bc_rows(t["disp"], t["sol"], t["f_stress"]),
+                fsi.solid._nodal_stress_impl(t["sigma"]),
+                *fsi.solid._device_step_impl(
+                    t["moved"], t["vel"].reshape(-1, d), t["sigma"],
+                    t["rows"])]
+
+    got, ref = outputs(g, "cuda"), outputs(c, "cpu")
+    assert torch.equal(got[0].cpu(), ref[0]) and ref[0].any()
+    assert torch.equal(got[1].cpu(), ref[1])
+    for a, b in zip(got[2:], ref[2:]):
+        assert rel_err(a.cpu(), b) <= 1e-12

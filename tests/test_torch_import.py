@@ -26,7 +26,10 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "assert 'openifem_tpu_torch.fsi.fsi' in sys.modules\n"
         "for m in ('solvers.fluid.supg', 'solvers.fluid.scnsex',\n"
-        "          'cases.acoustic_duct', 'cases.fluid_cylinder'):\n"
+        "          'cases.acoustic_duct', 'cases.fluid_cylinder',\n"
+        "          'fsi.mpi_fsi', 'solvers.solid.linear',\n"
+        "          'solvers.solid.shared', 'solvers.solid.hypo',\n"
+        "          'cases.fsi_wall_3d', 'cases.mpi_block'):\n"
         "    assert 'openifem_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     r = _run(code)

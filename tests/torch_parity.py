@@ -23,7 +23,8 @@ from openifem_tpu.solvers.fluid.scnsex import SCnsEX as JaxSCnsEX
 from openifem_tpu.solvers.fluid.supg import SCnsIM as JaxSCnsIM
 from openifem_tpu.solvers.fluid.supg import SerialSCnsIM as JaxSerialSCnsIM
 from openifem_tpu.solvers.fluid.supg import SUPGInsIM as JaxSUPGInsIM
-from openifem_tpu.solvers.solid import HyperElasticity as JaxHyper
+from openifem_tpu.fsi.mpi_fsi import MPIFSI as JaxMPIFSI
+from openifem_tpu.solvers import solid as jax_solid
 from openifem_tpu_torch import interop
 from openifem_tpu_torch.cases.fsi_leaflet import leaflet_case, port_package
 
@@ -43,8 +44,9 @@ JAX = SimpleNamespace(AllParameters=openifem_tpu.AllParameters,
                       generators=jax_generators, InsIM=JaxInsIM,
                       InsIMEX=JaxInsIMEX, SUPGInsIM=JaxSUPGInsIM,
                       SCnsIM=JaxSCnsIM, SerialSCnsIM=JaxSerialSCnsIM,
-                      SCnsEX=JaxSCnsEX, HyperElasticity=JaxHyper,
-                      FSI=JaxFSI)
+                      SCnsEX=JaxSCnsEX, FSI=JaxFSI, MPIFSI=JaxMPIFSI,
+                      **{name: getattr(jax_solid, name)
+                         for name in jax_solid.__all__})
 PORT = port_package()
 
 

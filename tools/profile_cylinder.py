@@ -2,8 +2,10 @@
 """Where one time step of the port's standalone fluid goes, on one CUDA
 GPU: a cylinder configuration of cases/fluid_cylinder.py through its
 stepper ("r3" or "r4": InsIM; "scnsim": SCnsIM at refine 3 with the bench
-knobs, as chip_smoke.py phase 12 runs it), or "scnsex": SCnsEX on the
-acoustic duct of cases/acoustic_duct.py (3,315 dofs, phase 13).
+knobs, as chip_smoke.py phase 12 runs it), "scnsex": SCnsEX on the
+acoustic duct of cases/acoustic_duct.py (3,315 dofs, phase 13), or
+"wall3d": the coupled fsi-wall-3D step of cases/fsi_wall_3d.py at full
+resolution with the bench knobs (45,207 dofs, phase 15).
 
     python3 tools/profile_cylinder.py [--config r4] [--steps 2]
 
@@ -15,7 +17,11 @@ its warm-up window, as chip_smoke.py runs it), three windows:
      inside one preconditioner apply the Mp CG, the Schur solve, B^T and
      the inner A solve with its stencil applies; for "scnsim" the Tpp
      GMRES, GalerkinMG.build, its V-cycle and the coupled stencil's
-     applies; for "scnsex" the sweeps, their CGs and element matvecs).
+     applies; for "scnsex" the sweeps, their CGs and element matvecs;
+     for "wall3d" the coupled step's solid RK4, coupling and fluid
+     Newton parts (through MPIFSI.step_span), the assembly, the preconditioner build with its condensed dense blocks
+     (the rest of the build is the dense Tpp product), the outer FGMRES
+     and the Tpp GMRES).
      The timers nest; each
      is printed as a share of the window.  Their synchronisations slow
      the window down, so the shares are read against this window's own
@@ -26,7 +32,7 @@ its warm-up window, as chip_smoke.py runs it), three windows:
      For "scnsim" the profiled window is ONE preconditioner apply at the
      stepped state (one Tpp solve: a whole step is about a hundred times
      that many device kernels, more than the profiler holds), for "scnsex"
-     five steps.
+     five steps; for "wall3d" one coupled step.
 Prints one JSON line per window.  Needs a CUDA device.
 """
 
@@ -37,6 +43,7 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -77,6 +84,23 @@ class SyncTimers:
             return holder.fn
         setattr(owner, attr, build)
         self._undo.append((owner, attr, fn))
+
+    @contextmanager
+    def span(self, name):
+        """A synchronising timer around a block."""
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+
+    def hook(self, owner, attr):
+        """Set owner.attr, a span hook, to self.span until restore()."""
+        self._undo.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, self.span)
 
     def restore(self):
         for owner, attr, fn in reversed(self._undo):
@@ -193,10 +217,39 @@ def _scnsex(torch, steps):
     return fl, advance, timers, 10, lambda: advance(5)
 
 
+def _wall3d(torch, steps):
+    """fsi-wall-3D at full resolution after MPIFSI.run's set-up and host
+    first step (run with one step); advance(n) takes n coupled steps."""
+    from openifem_tpu_torch.cases import fsi_wall_3d as fw
+    from openifem_tpu_torch.la import dense, krylov
+    from openifem_tpu_torch.solvers.fluid import supg
+    fsi = fw.wall3d_case(fw.port_package(), n_steps=1, device="cuda")
+    fsi.run(verbose=False)
+    fl, so = fsi.fluid, fsi.solid
+
+    def advance(n):
+        for _ in range(n):
+            fsi.run_one_coupled_step()      # raises unless converged
+            fsi.time.increment()
+        return 0.0, fl.newton_iters
+    advance.solid_dofs = so.n_dofs
+
+    def timers(tm):
+        # the coupled step's solid RK4, coupling and fluid Newton parts
+        tm.hook(fsi, "step_span")
+        tm.wrap(fl, "_assemble", "assembly")
+        tm.wrap(fl, "_make_preconditioner", "preconditioner build")
+        tm.wrap(dense, "condensed_dense", "condensed dense blocks")
+        tm.wrap(krylov, "fgmres", "outer FGMRES")   # _outer_solve's import
+        tm.wrap(supg, "fgmres", "Tpp GMRES")
+        tm.wrap(fl, "_update_stress_impl", "nodal stress update")
+    return fl, advance, timers, 1, lambda: advance(1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="r4",
-                    choices=("r3", "r4", "scnsim", "scnsex"))
+                    choices=("r3", "r4", "scnsim", "scnsex", "wall3d"))
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
     sys.path.insert(0, HERE)
@@ -212,6 +265,8 @@ def main():
         fl, advance, timers, warm, profiled = _scnsim(torch, args.steps)
     elif args.config == "scnsex":
         fl, advance, timers, warm, profiled = _scnsex(torch, args.steps)
+    elif args.config == "wall3d":
+        fl, advance, timers, warm, profiled = _wall3d(torch, args.steps)
     else:
         fl, advance, timers, warm, profiled = _insim(torch, args.config)
 
@@ -223,7 +278,9 @@ def main():
         return rel, it, time.perf_counter() - t0
 
     _, _, warm_s = window(warm)
-    base = dict(config=args.config, dofs=fl.n_dofs, device=smi)
+    # fluid dofs, and the solid's in a coupled configuration
+    base = dict(config=args.config, device=smi,
+                dofs=fl.n_dofs + getattr(advance, "solid_dofs", 0))
 
     def counts(k0):
         return {n: v - k0[n] for n, v in fl.krylov_iters.items()}
