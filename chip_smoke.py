@@ -2,6 +2,7 @@
 """Drive the PyTorch port (openifem_tpu_torch) once on one CUDA GPU.
 
     python3 chip_smoke.py [--phases 14,15] [--wall3d-depth 1,3]
+                          [--vocal-depth 1,3]
 
 Phases, one line each; any failure raises and exits non-zero before the
 last line is printed (--phases runs a subset, for development; phases 0
@@ -88,7 +89,26 @@ and 1 always run):
      solid RK4 step, the coupling kernels and the fluid Newton loop (CUDA
      events); set-up seconds and peak memory; every step converged,
      finite fields, covered cells and nonzero stress rows.
-Phases 8-15 then hold every kernel shape they launched against its plain
+ 16. the vocal fold (cases/vocal_fold.py: SCnsIM with a Spalart-Allmaras
+     eddy viscosity, a SharedLinearElasticity fold, the MPI coupler's wall
+     functions and contact, per-step control-volume budgets), coarse
+     (3,534 dofs), 3 steps through ControlVolumeFSI.run on CUDA and on the
+     CPU (f64): fluid, nu~, solid and shear velocities within rtol 1e-6,
+     every cv_history key within 1e-6 (1e-12 absolute near 0), equal
+     fluid Newton, SA Newton and contact-retry counts; then the channel
+     without the fold, SCnsIM + SA through run_on_device against run() on
+     the card, 3 steps, within 1e-6;
+ 17. the vocal fold at full size (global refinements (2, 1), 52,470
+     dofs) with fsi-wall-3D's bench knobs through ControlVolumeFSI.run:
+     the host first step, warm-up and timed steps (--vocal-depth
+     warm,timed; default 1,3): per step ms, dof-steps per second, fluid
+     Newton, outer FGMRES and Tpp GMRES counts, SA Newton and FGMRES
+     counts, contact retries, host syncs and the split between the solid,
+     coupling, SA, fluid Newton and CV-analysis parts (CUDA events);
+     set-up seconds and peak memory; every step converged, finite fields
+     and budgets, present_KE >= 0, eddy viscosity finite and >= 0,
+     covered cells.
+Phases 8-17 then hold every kernel shape they launched against its plain
 version as phase 2 does, at the path's own tables.  Phase 2 also checks
 the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p 8 x 24) in
 f32 and f64 on a 12^3 box.
@@ -102,7 +122,7 @@ if a plan is built after the configuration's first step; phases 12 and
 count their launches per (layout, dtype, number of cells, block rows,
 block columns); the script fails if a path launched a shape that no phase
 checked.  Then a JSON line with one entry per such shape (launches summed
-over the paths of phases 4 and 6-13, and per step of each path; error and
+over the paths of phases 4 and 6-17, and per step of each path; error and
 times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
@@ -110,6 +130,7 @@ Exits non-zero, and prints no result, when no CUDA device is present.
 import argparse
 import inspect
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -171,6 +192,9 @@ DUCT_RUNS = {"duct": dict(extra_refine=0, dofs=3315, cells=1024),
 # step, warm-up and timed (the JAX bench's depth is 2, 10)
 WALL3D_DOFS = 45207
 WALL3D_WARM, WALL3D_TIMED = 1, 3
+# the vocal fold at full size: steps after the host first step, warm-up
+# and timed
+VOCAL_WARM, VOCAL_TIMED = 1, 3
 # the reference's one-core CPU rate, dof-steps per second
 REFERENCE_DOF_STEPS = 1505
 
@@ -1520,6 +1544,230 @@ def phase15_wall3d(torch, results, depth):
     return launches, t_per
 
 
+# -- the vocal fold: ControlVolumeFSI with Spalart-Allmaras ----------------
+
+def sa_kernel_cases(torch, tm, dt, gen):
+    """The scalar layout at the Spalart-Allmaras model's own table (its
+    Newton matrix), with random blocks from `gen`."""
+    from openifem_tpu_torch.la import operators as ops
+    n_c, nl = tm.cell_dofs.shape
+    A = torch.randn(n_c, nl, nl, generator=gen, device="cuda", dtype=dt)
+    x = torch.randn(tm.n, generator=gen, device="cuda", dtype=dt)
+    return [("element_matvec", n_c, "SA Newton",
+             lambda: ops.element_matvec(A, tm.cell_dofs, tm.n, x),
+             lambda: ops.element_matvec_plain(A, tm.cell_dofs, tm.n, x))]
+
+
+def _check_vocal_fold_launched(torch, label, fsi, launches, results):
+    """Hold every shape a vocal-fold path launched against its plain
+    version: the SA model's table first, then the fluid's and the
+    solid's."""
+    tm = fsi.fluid.turbulence_model
+    for name_dt in sorted({k[1] for k in launches}):
+        dt = getattr(torch, name_dt)
+        gen = torch.Generator(device="cuda").manual_seed(89)
+        check_kernels(torch, label, sa_kernel_cases(torch, tm, dt, gen), dt,
+                      results, only=set(launches))
+        check_kernels(torch, label,
+                      kernel_cases(torch, fsi.fluid, fsi.solid, dt, gen), dt,
+                      results, only=set(launches))
+
+
+def _vocal_counts(fsi):
+    """(fluid Newton, SA Newton, contact retries) per step."""
+    return [(s["fluid_newton"], s["sa_newton"], s["solid_retries"])
+            for s in fsi.step_log]
+
+
+def _cv_close(got, want, rtol=1e-6):
+    """Budget keys of two cv_history entries that disagree beyond rtol
+    (1e-12 absolute near 0)."""
+    return {k: (got[k], want[k]) for k in want
+            if not abs(got[k] - want[k]) <= max(rtol * abs(want[k]), 1e-12)}
+
+
+def phase16_coarse_vocal_fold(torch, results):
+    """The coarse vocal fold through ControlVolumeFSI.run, CUDA vs CPU;
+    then the standalone SCnsIM + SA through run_on_device against run()
+    on the card; every shape launched against its plain version."""
+    from openifem_tpu_torch.cases import vocal_fold as vf
+    from openifem_tpu_torch.la import cuda_ops
+    label = "phase 16"
+    pkg = vf.port_package()
+
+    def run(dev):
+        fsi = vf.vocal_fold_case(pkg, 3, device=dev)
+        fsi.run(verbose=False)
+        return fsi
+
+    cuda_ops.reset_launches()
+    g, t_gpu = _timed(torch, run, "cuda")
+    launches = cuda_ops.launches.copy()
+    c, t_cpu = _timed(torch, run, "cpu")
+    gt, ct = g.fluid.turbulence_model, c.fluid.turbulence_model
+    errs = {"fluid solution": _rel(g.fluid.present_solution,
+                                   c.fluid.present_solution),
+            "nu~": _rel(gt.present_solution, ct.present_solution),
+            "solid displacement": _rel(g.solid.current_displacement,
+                                       c.solid.current_displacement),
+            "shear velocities": _rel(g.shear_velocities,
+                                     c.shear_velocities)}
+    bad = [_cv_close(a, b) for a, b in zip(g.cv_history, c.cv_history)]
+    n_dofs = g.fluid.n_dofs + gt.n + g.solid.n_dofs
+    ok = (_vocal_counts(g) == _vocal_counts(c) and len(g.step_log) == 3
+          and all(e <= 1e-6 for e in errs.values()) and not any(bad)
+          and len(g.cv_history) == len(c.cv_history) == 3
+          and n_dofs == vf.DOFS[vf.COARSE]
+          and torch.equal(g.fluid.indicator.cpu(), c.fluid.indicator))
+    say(f"{label}: coarse vocal fold (f64), {g.fluid.n_dofs} + {gt.n} + "
+        f"{g.solid.n_dofs} = {n_dofs} dofs, 3 steps, CUDA vs CPU: "
+        + ", ".join(f"{k} rel err {v:.3e}" for k, v in errs.items())
+        + f" (rtol 1e-6); {len(g.cv_history[-1])} cv_history keys per "
+        f"step, beyond 1e-6: {bad}; (Newton, SA Newton, retries) per step "
+        f"CUDA {_vocal_counts(g)} CPU {_vocal_counts(c)}; covered cells "
+        f"{int(g.fluid.indicator.sum().item())}; launches "
+        f"{dict(launches)}; {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "coarse vocal fold: CUDA and CPU runs disagree")
+    _check_vocal_fold_launched(torch, label, g, launches, results)
+    paths = {"coarse_vocal_fold": _path(launches, 3)}
+
+    # the standalone fluid with the model: the stepper against run()
+    runs = {}
+    for entry in ("run", "run_on_device"):
+        fl = vf.standalone_fluid(pkg, 3, device="cuda")
+        cuda_ops.reset_launches()
+        t0 = time.perf_counter()
+        getattr(fl, entry)(verbose=False)
+        torch.cuda.synchronize()
+        runs[entry] = (fl, time.perf_counter() - t0, cuda_ops.launches.copy())
+    (h, t_h, l_h), (s, t_s, l_s) = runs["run"], runs["run_on_device"]
+    errs = {"fluid solution": _rel(s.present_solution, h.present_solution),
+            "nu~": _rel(s.turbulence_model.present_solution,
+                        h.turbulence_model.present_solution),
+            "eddy viscosity": _rel(s.eddy_viscosity_nodal,
+                                   h.eddy_viscosity_nodal)}
+    ok = (all(e <= 1e-6 for e in errs.values())
+          and s.time.get_timestep() == h.time.get_timestep() == 3)
+    say(f"{label}: standalone SCnsIM + SA (f64, {h.n_dofs} + "
+        f"{h.turbulence_model.n} dofs), 3 steps, run_on_device vs run() on "
+        f"CUDA: " + ", ".join(f"{k} rel err {v:.3e}"
+                              for k, v in errs.items())
+        + f" (rtol 1e-6); {t_s:.2f} s vs {t_h:.2f} s; launches "
+        f"{dict(l_s)} {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the SA stepper disagrees with run()")
+    for fl, launched in ((h, l_h), (s, l_s)):
+        for name_dt in sorted({k[1] for k in launched}):
+            dt = getattr(torch, name_dt)
+            gen = torch.Generator(device="cuda").manual_seed(91)
+            check_kernels(torch, label, sa_kernel_cases(
+                torch, fl.turbulence_model, dt, gen), dt, results,
+                only=set(launched))
+        _check_launched(torch, label, fl, launched, results)
+    paths["coarse_scnsim_sa_run"] = _path(l_h, 3)
+    paths["coarse_scnsim_sa_stepper"] = _path(l_s, 3)
+    return paths
+
+
+def phase17_vocal_fold(torch, results, depth):
+    """The vocal fold at full size through ControlVolumeFSI.run, with the
+    launch counts zeroed just before and read just after."""
+    from openifem_tpu_torch.cases import vocal_fold as vf
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.utils.timer import DeviceSpans, count_host_syncs
+    label = "phase 17"
+    n_warm, n_timed = depth
+    n_steps = 1 + n_warm + n_timed
+    fsi = vf.vocal_fold_case(vf.port_package(), n_steps, vf.FULL,
+                             knobs=vf.BENCH_KNOBS, device="cuda")
+    fl, so = fsi.fluid, fsi.solid
+    tm = fl.turbulence_model
+    # device time of the step's solid, coupling, SA, fluid Newton and CV
+    # analysis parts
+    fsi.step_span = spans = DeviceSpans()
+    per_step, marks = [], {}
+    real_phases, real_after = fsi._run_phases, fsi._after_step
+
+    def phases(*args, **kw):
+        marks.update(syncs=syncs["syncs"], krylov=dict(fl.krylov_iters),
+                     launches=cuda_ops.launches.copy(),
+                     sa=tm.krylov_iters["fgmres"])
+        return real_phases(*args, **kw)
+
+    def after():
+        real_after()
+        per_step.append(dict(
+            syncs=syncs["syncs"] - marks["syncs"], spans=spans.ms(),
+            newton=fl.newton_iters, sa_newton=tm.newton_iters,
+            sa_fgmres=tm.krylov_iters["fgmres"] - marks["sa"],
+            krylov={n: v - marks["krylov"][n]
+                    for n, v in fl.krylov_iters.items()},
+            launches=cuda_ops.launches - marks["launches"]))
+    fsi._run_phases, fsi._after_step = phases, after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    with count_host_syncs() as syncs:
+        fsi.run(verbose=False)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = cuda_ops.launches.copy()
+    peak = torch.cuda.max_memory_allocated()
+    n_dofs = fl.n_dofs + tm.n + so.n_dofs
+    setup_s = total - sum(s["seconds"] for s in fsi.step_log)
+    say(f"{label}: vocal fold {fl.mesh.n_cells} fluid cells ({fl.n_u} + "
+        f"{fl.n_p} dofs), SA {tm.n} dofs, {so.mesh.n_cells} solid cells "
+        f"({so.n_dofs} dofs): {n_dofs} dofs; knobs {vf.BENCH_KNOBS}; set up "
+        f"in {setup_s:.2f} s; peak device memory {peak / 2**20:.1f} MiB")
+    for i, (s, log) in enumerate(zip(per_step, fsi.step_log)):
+        k, sp = s["krylov"], s["spans"]
+        kind = ("host first" if i == 0 else
+                "warm-up" if i <= n_warm else "timed")
+        say(f"{label}: {kind} step {i + 1}: {1e3 * log['seconds']:.1f} ms, "
+            f"{n_dofs / log['seconds']:.1f} dof-steps/s (reference CPU "
+            f"{REFERENCE_DOF_STEPS}); Newton {s['newton']}, outer FGMRES "
+            f"{k['outer']}, Tpp GMRES {k['tpp']} "
+            f"({k['tpp'] / max(k['applies'], 1):.2f} per apply); SA Newton "
+            f"{s['sa_newton']}, SA FGMRES {s['sa_fgmres']}; contact retries "
+            f"{log['solid_retries']}; host syncs {s['syncs']}; device spans "
+            + ", ".join(f"{name} {sp.get(name, 0):.2f} ms" for name in (
+                "solid", "coupling", "SA", "fluid Newton", "CV analysis"))
+            + f"; launches {dict(s['launches'])}")
+    timed = per_step[1 + n_warm:]
+    ms = [1e3 * log["seconds"] for log in fsi.step_log[1 + n_warm:]]
+    t_per = {key: n / len(timed) for key, n in
+             sum((s["launches"] for s in timed), Counter()).items()}
+    eddy = tm.eddy_viscosity_nodal
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        fl.present_solution, fl.stress_device, tm.present_solution,
+        so.current_displacement))
+    cv_finite = all(math.isfinite(v) for h in fsi.cv_history
+                    for v in h.values())
+    ke = min(h["present_KE"] for h in fsi.cv_history)
+    covered = int(fl.indicator.sum().item())
+    eddy_ok = bool(torch.isfinite(eddy).all()) and eddy.min().item() >= 0
+    ok = (n_dofs == vf.DOFS[vf.FULL] and finite and cv_finite and ke >= 0
+          and eddy_ok and covered > 0 and len(per_step) == n_steps
+          and len(fsi.cv_history) == n_steps
+          and not any(s["coupled"] for s in fsi.step_log)
+          and fl.tpp_branch() == "dense" and fl.outer_branch() == "element")
+    last = fsi.cv_history[-1]
+    say(f"{label}: {len(ms)} timed steps, {statistics.mean(ms):.1f} "
+        f"ms/step mean, {statistics.median(ms):.1f} median, "
+        f"{n_dofs * len(ms) / (sum(ms) / 1e3):.1f} dof-steps/s; every step "
+        f"converged; finite {finite}, cv_history finite {cv_finite}, min "
+        f"present_KE {ke:.6e}, eddy viscosity in [{eddy.min().item():.4e}, "
+        f"{eddy.max().item():.4e}], covered cells {covered}, max shear "
+        f"velocity {fsi.shear_velocities.max().item():.4e}; last budgets "
+        + ", ".join(f"{k} {last[k]:.6e}" for k in vf.SUMMARY_KEYS)
+        + f"; branches {dict(fl.precond_branches)} "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the vocal fold at full size failed")
+    _check_vocal_fold_launched(torch, label, fsi, launches, results)
+    return launches, t_per
+
+
 def _run_phase(n, fn, *args):
     """fn(*args), then one line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -1530,7 +1778,7 @@ def _run_phase(n, fn, *args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 16))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 18))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
     ap.add_argument("--scnsim-depth", default=",".join(map(str, (
@@ -1540,6 +1788,9 @@ def main():
     ap.add_argument("--wall3d-depth", default=f"{WALL3D_WARM},{WALL3D_TIMED}",
                     help="phase 15: warm-up and timed coupled steps after "
                          "the host first step (default: %(default)s)")
+    ap.add_argument("--vocal-depth", default=f"{VOCAL_WARM},{VOCAL_TIMED}",
+                    help="phase 17: warm-up and timed steps after the host "
+                         "first step (default: %(default)s)")
     args = ap.parse_args()
     want = {int(p) for p in args.phases.split(",") if p}
     depth = tuple(int(n) for n in args.scnsim_depth.split(","))
@@ -1548,6 +1799,9 @@ def main():
     wall3d_depth = tuple(int(n) for n in args.wall3d_depth.split(","))
     if len(wall3d_depth) != 2 or wall3d_depth[0] < 0 or wall3d_depth[1] < 1:
         ap.error("--wall3d-depth takes warm >= 0, timed >= 1")
+    vocal_depth = tuple(int(n) for n in args.vocal_depth.split(","))
+    if len(vocal_depth) != 2 or vocal_depth[0] < 0 or vocal_depth[1] < 1:
+        ap.error("--vocal-depth takes warm >= 0, timed >= 1")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import torch
@@ -1595,6 +1849,12 @@ def main():
         if 15 in want:
             runs["wall3d"] = _run_phase(15, phase15_wall3d, torch, checked,
                                        wall3d_depth)
+        if 16 in want:
+            runs.update(_run_phase(16, phase16_coarse_vocal_fold, torch,
+                                   checked))
+        if 17 in want:
+            runs["vocal_fold"] = _run_phase(17, phase17_vocal_fold, torch,
+                                           checked, vocal_depth)
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version

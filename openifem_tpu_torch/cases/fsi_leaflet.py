@@ -144,17 +144,20 @@ def port_package():
     """The port's classes, in the form `leaflet_case` takes a package."""
     from types import SimpleNamespace
 
-    from ..fsi import FSI, MPIFSI
+    from ..fsi import FSI, MPIFSI, ControlVolumeFSI
     from ..mesh import generators
     from ..parameters import AllParameters
     from ..solvers import solid
     from ..solvers.fluid import (InsIM, InsIMEX, SCnsEX, SCnsIM,
                                  SerialSCnsIM, SUPGInsIM)
+    from ..solvers.turbulence import make_turbulence_model
     return SimpleNamespace(AllParameters=AllParameters,
                            generators=generators, InsIM=InsIM,
                            InsIMEX=InsIMEX, SUPGInsIM=SUPGInsIM,
                            SCnsIM=SCnsIM, SerialSCnsIM=SerialSCnsIM,
                            SCnsEX=SCnsEX, FSI=FSI, MPIFSI=MPIFSI,
+                           ControlVolumeFSI=ControlVolumeFSI,
+                           make_turbulence_model=make_turbulence_model,
                            **{name: getattr(solid, name)
                               for name in solid.__all__})
 

@@ -45,6 +45,8 @@ class FSI:
         # V-cycle; when set, the hierarchy [bases..., fluid mesh] is
         # attached after the fluid's setup
         self.fluid_mg_base = None
+        from ..utils.timer import Timer
+        self.timer = Timer(type(self).__name__)
 
     def _enable_fluid_mg(self):
         fl = self.fluid
@@ -165,7 +167,7 @@ class FSI:
             sol, stress, rel, its = self._fluid_step_fn(
                 fluid.present_solution, fluid.indicator,
                 fluid.fsi_acc_nodal, fluid.fsi_stress_nodal,
-                fluid.stress_device, fluid._zero_eddy(), zero_ext,
+                fluid.stress_device, fluid._eddy_nodal(), zero_ext,
                 nonzero_ext, ucons, fluid.p_constraints)
         else:
             sol, stress, rel, its = self._fluid_step_fn(
@@ -347,8 +349,23 @@ class FSI:
         self.solid.run_one_step(first_step)
         return 0
 
-    def run(self, verbose: bool = True):
-        """reference: source/fsi.cpp:459-516."""
+    def _run_phases(self, first_step: bool, verbose: bool) -> int:
+        """One step of the per-phase loop (reference: source/fsi.cpp:
+        484-506); returns the solid's retries."""
+        with self.timer.scope("Find solid BC"):
+            self.find_solid_bc()
+        with self.timer.scope("Run solid solver"):
+            retries = self._run_solid_step(first_step)
+        with self.timer.scope("Update indicator"):
+            self.update_solid_box_and_indicator()
+        with self.timer.scope("Find fluid BC"):
+            zero_ext, nonzero_ext = self.find_fluid_bc(first_step)
+        with self.timer.scope("Run fluid solver"):
+            self._run_fluid_step(zero_ext, nonzero_ext, verbose)
+        return retries
+
+    def _setup_run(self):
+        """run()'s set-up: global refinement, both solvers, coupling."""
         params = self.params
         self.solid.mesh = self.solid.mesh.refine_global(
             params.global_refinements[1])
@@ -359,54 +376,63 @@ class FSI:
         self._enable_fluid_mg()
         self._setup_coupling()
 
+    def run(self, verbose: bool = True):
+        """reference: source/fsi.cpp:459-516."""
+        params = self.params
+        self._setup_run()
         if params.refinement_interval < params.end_time:
             # initial interface refinement x2 (reference: fsi.cpp:499-506)
             gr = params.global_refinements[0]
             self.refine_mesh(gr, gr + 1, verbose=verbose)
             self.refine_mesh(gr, gr + 1, verbose=verbose)
+        self._time_loop(verbose)
 
+    def _time_loop(self, verbose: bool, fuse: bool = True, after_step=None):
+        """The time loop of run(): the per-phase first step, then coupled
+        steps where `fuse` and _can_fuse_step allow; after each step the
+        clock, `after_step()`, interface refinement and checkpoints at
+        their intervals.  Logs each step in self.step_log (its seconds
+        include after_step)."""
+        params = self.params
         if verbose:
             print(f"{type(self).__name__}: fluid cells/dofs "
                   f"[{self.fluid.mesh.n_cells}, "
                   f"{self.fluid.n_dofs}], solid cells/dofs "
                   f"[{self.solid.mesh.n_cells}, {self.solid.n_dofs}]")
 
-        from ..utils.timer import Timer
-        self.timer = Timer(type(self).__name__)
-        # one entry per step: path taken, Newton, retry and Krylov counts,
-        # time
+        # one entry per step: path taken, Newton, retry and Krylov counts
+        # (a turbulence model's Newton and FGMRES counts), time
         self.step_log = []
         krylov = getattr(self.fluid, "krylov_iters", {})
+        tm = getattr(self.fluid, "turbulence_model", None)
         first_step = True
         while self.time.end() - self.time.current() > 1e-12:
             t0 = time.perf_counter()
             k0 = dict(krylov)
-            coupled = not first_step and self._can_fuse_step()
+            sa0 = tm.krylov_iters["fgmres"] if tm is not None else 0
+            coupled = fuse and not first_step and self._can_fuse_step()
             retries = 0
             if coupled:
                 with self.timer.scope("Coupled device step"):
                     self.run_one_coupled_step(verbose)
             else:
-                with self.timer.scope("Find solid BC"):
-                    self.find_solid_bc()
-                with self.timer.scope("Run solid solver"):
-                    retries = self._run_solid_step(first_step)
-                with self.timer.scope("Update indicator"):
-                    self.update_solid_box_and_indicator()
-                with self.timer.scope("Find fluid BC"):
-                    zero_ext, nonzero_ext = self.find_fluid_bc(first_step)
-                with self.timer.scope("Run fluid solver"):
-                    self._run_fluid_step(zero_ext, nonzero_ext, verbose)
+                retries = self._run_phases(first_step, verbose)
                 first_step = False
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self.step_log.append(dict(
+            entry = dict(
                 step=self.time.get_timestep() + 1, coupled=coupled,
                 solid_newton=getattr(self.solid, "newton_iters", None),
                 fluid_newton=self.fluid.newton_iters, solid_retries=retries,
-                krylov={k: v - k0[k] for k, v in krylov.items()},
-                seconds=time.perf_counter() - t0))
+                krylov={k: v - k0[k] for k, v in krylov.items()})
+            if tm is not None:
+                entry.update(sa_newton=tm.newton_iters,
+                             sa_fgmres=tm.krylov_iters["fgmres"] - sa0)
             self.time.increment()
+            if after_step is not None:
+                after_step()
+            entry["seconds"] = time.perf_counter() - t0
+            self.step_log.append(entry)
             if self.time.time_to_refine():
                 gr = params.global_refinements[0]
                 self.refine_mesh(gr, gr + 1, verbose=verbose)

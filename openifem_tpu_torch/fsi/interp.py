@@ -1,10 +1,12 @@
 """Cross-mesh interpolation for the immersed FSI coupling.
 
 Counterpart of openifem_tpu/fsi/interp.py (reference:
-source/utilities.cpp:192-341, source/fsi.cpp:92-109): point location by a
+source/utilities.cpp:83-341, source/fsi.cpp:92-109): point location by a
 uniform-grid cell hash (sort + searchsorted on int64 keys) and a batched
 component-wise Newton inversion of the bilinear map, instead of per-point
-cell walks.
+cell walks.  `locate_points` is the all-pairs search whose semantics the
+hash reproduces (the lowest containing cell wins), and `sph_interpolate`
+the SPH kernel average from cell centres.
 """
 
 from __future__ import annotations
@@ -111,6 +113,67 @@ def invert_bilinear_cw(px, vx, n_iter: int = 6):
         dxi = _solve_small_cw(A, r)
         xi = [xi[a] + dxi[a] for a in range(dim)]
     return xi
+
+
+def invert_bilinear(points, cell_verts, n_iter: int = 6):
+    """Invert the (bi/tri)linear map for batches of (point, cell) pairs.
+
+    points: (..., dim); cell_verts: (..., 2**dim, dim) in z-order; the
+    batch shapes broadcast.  Returns unit coords (..., dim), by
+    invert_bilinear_cw's Newton iteration on the flattened batch."""
+    dim = points.shape[-1]
+    batch = torch.broadcast_shapes(points.shape[:-1], cell_verts.shape[:-2])
+    pts = points.expand(batch + (dim,)).reshape(-1, dim)
+    cv = cell_verts.expand(batch + cell_verts.shape[-2:]).reshape(
+        -1, 2 ** dim, dim)
+    xi = invert_bilinear_cw([pts[:, a] for a in range(dim)],
+                            [[cv[:, v, a] for a in range(dim)]
+                             for v in range(2 ** dim)], n_iter)
+    return torch.stack(xi, dim=-1).reshape(batch + (dim,))
+
+
+def locate_points(points, cell_verts, cell_bbox_lo, cell_bbox_hi,
+                  tol: float = 1e-10):
+    """Find for each point the containing cell among all cells (a dense
+    (n_p, n_c) search; make_cell_hash gives the same answer on K
+    candidates per point).
+
+    points: (n_p, dim); cell_verts: (n_c, 2**dim, dim);
+    cell_bbox_lo/hi: (n_c, dim) bounding boxes (pre-inflated by caller).
+    Returns (cell_idx (n_p,) [-1 if none], unit (n_p, dim), found); the
+    lowest containing cell index wins."""
+    inb = torch.all((points[:, None, :] >= cell_bbox_lo[None] - tol) &
+                    (points[:, None, :] <= cell_bbox_hi[None] + tol),
+                    dim=-1)                                # (n_p, n_c)
+    xi = invert_bilinear(points[:, None, :], cell_verts[None])
+    inside = torch.all((xi >= -1e-8) & (xi <= 1 + 1e-8), dim=-1) & inb
+    # argmax returns the first maximum: the lowest containing cell
+    idx = torch.argmax(inside.to(torch.int32), dim=1)
+    found = torch.any(inside, dim=1)
+    rows = torch.arange(points.shape[0], device=points.device)
+    unit = torch.clamp(xi[rows, idx], 0.0, 1.0)
+    return torch.where(found, idx, -1), unit, found
+
+
+def sph_interpolate(targets, centers, diameters, values):
+    """SPH cubic-spline-kernel interpolation from cell centres
+    (Utils::SPHInterpolator, reference: source/utilities.cpp:83-190).
+
+    targets: (n_t, d); centers: (n_c, d); diameters: (n_c,) smoothing
+    lengths h (the reference uses the cell diameter); values: (n_c, ...)
+    cell-centred data.  Returns kernel-weighted averages at the targets
+    (0 where no centre is within 2 h)."""
+    d = targets.shape[1]
+    rel = targets[:, None, :] - centers[None, :, :]
+    q = torch.linalg.vector_norm(rel, dim=-1) / diameters[None, :]
+    coef = (10.0 / (7.0 * np.pi * diameters ** 2) if d == 2
+            else 1.0 / (np.pi * diameters ** 3))[None, :]
+    w = torch.where(q < 1.0, 1.0 - 1.5 * q ** 2 + 0.75 * q ** 3,
+                    torch.where(q < 2.0, 0.25 * (2.0 - q) ** 3, 0.0)) * coef
+    wsum = w.sum(dim=1)
+    wsum = torch.where(wsum > 0, wsum, 1.0)
+    out = torch.einsum("tc,c...->t...", w, values)
+    return out / wsum.reshape((-1,) + (1,) * (values.dim() - 1))
 
 
 def plan_cell_hash(cell_verts_np, safety: float = 1.0,

@@ -22,10 +22,16 @@ slot) index per node, one term per node, so no atomics; the boundary rows
 are a set on unique indices; the contact traction adds at shared vertices
 once per (face, vertex) occurrence, by design (index_add_).
 
+A fluid with a turbulence model (the Spalart-Allmaras wall functions,
+source/mpi_fsi.cpp:78-120, 655-660, 784-844, 1199-1203) takes the
+per-phase loop, as in the JAX package: per step the shear velocities at
+the solid boundary vertices (find_solid_bc), the model's Dirichlet rows,
+the moving-wall distance (find_fluid_bc) and the model's Newton solve
+before the fluid's, all on the device.
+
 Not ported, and refused with NotImplementedError naming the ROADMAP.md
-item: the turbulence wall-function hooks (queue 1 item 4), interface
-refinement and coordinated checkpoints, and the restart that the JAX
-package's run() attempts first (queue 1 item 5).
+item: interface refinement and coordinated checkpoints, and the restart
+that the JAX package's run() attempts first (queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -43,8 +49,6 @@ from ..solvers.fluid.supg import SUPGFluidSolver
 from .fsi import FSI
 from .interp import interpolate_nodal
 
-_TURBULENCE = ("MPIFSI's turbulence wall-function hooks are not ported yet "
-               "(ROADMAP.md queue 1 item 4: Turbulence)")
 _RESTART = ("MPIFSI.run would restart from the checkpoints {} in the working "
             "directory, as the JAX package does; checkpoints are not ported "
             "yet (ROADMAP.md queue 1 item 5: AMR and checkpoints)")
@@ -55,17 +59,22 @@ class MPIFSI(FSI):
         super().__init__(fluid, solid, params, use_dirichlet_bc)
         self.penetration_criterion = None
         self.penetration_direction = None
-        # name -> context manager, entered around each part of the coupled
-        # step ("solid RK4", "coupling", "fluid Newton"); a profiler's hook
+        # name -> context manager, entered around each part of a step: the
+        # coupled step's "solid RK4", "coupling" and "fluid Newton"; the
+        # per-phase step's "solid", "coupling", "SA" (a turbulence model's
+        # rows and solve) and "fluid Newton"; ControlVolumeFSI's "CV
+        # analysis".  A profiler's hook
         self.step_span = None
 
     def _can_fuse_step(self):
         # the coupled step: body-force mode with an RKPM solid
         # (SharedHypoElasticity, the fsi-wall-3D stack) and a fluid with an
-        # FSI step; contact and Dirichlet mode use the per-phase loop
+        # FSI step; contact, turbulence and Dirichlet mode use the
+        # per-phase loop
         return (self.fused_coupled_stepping
                 and not self.use_dirichlet_bc
                 and self.penetration_criterion is None
+                and getattr(self, "_tm", None) is None
                 and hasattr(self.fluid, "make_fsi_step")
                 and hasattr(self.solid, "_rk4_step_impl")
                 and hasattr(self.solid, "_nodal_stress_impl"))
@@ -159,8 +168,9 @@ class MPIFSI(FSI):
     # ------------------------------------------------------------------
     def _setup_coupling(self):
         fluid, solid = self.fluid, self.solid
-        if getattr(fluid, "turbulence_model", None) is not None:
-            raise NotImplementedError(_TURBULENCE)
+        tm = getattr(fluid, "turbulence_model", None)
+        if tm is not None and not hasattr(tm, "space"):
+            tm.setup()
         super()._setup_coupling()
         d = fluid.dim
         t = self._tensor
@@ -205,6 +215,27 @@ class MPIFSI(FSI):
                 for l in solid.space.face_local_nodes[f]:
                     bnodes.add(int(solid.space.cell_dofs[c, l]))
         self._solid_bnodes = t(sorted(bnodes), torch.int64)
+
+        # turbulence-model wall functions: the solid boundary vertices,
+        # each face's endpoints as indices into them, and the mean over a
+        # vertex's adjacent faces as an (n_v, n_f) matrix (reference:
+        # collect_solid_boundaries / _boundary_vertices,
+        # source/mpi_fsi.cpp:78-120)
+        self._tm = tm
+        if tm is not None:
+            bfv = solid._bface_verts.cpu().numpy()      # (n_f, nfv) ids
+            vids = np.unique(bfv)
+            face_vidx = np.searchsorted(vids, bfv)
+            avg = np.zeros((len(vids), len(bfv)))
+            for fi, row in enumerate(face_vidx):
+                avg[np.unique(row), fi] = 1.0
+            avg /= avg.sum(axis=1, keepdims=True)
+            self._sb_vids = t(vids, torch.int64)
+            self._sb_face_vidx = t(face_vidx, torch.int64)
+            self._sb_vertex_mean = t(avg)
+            self.shear_velocities = torch.zeros(len(vids),
+                                                dtype=real_dtype(),
+                                                device=self.device)
         self._mpi_kernels = _MPIKernels(self)
 
     # ------------------------------------------------------------------
@@ -224,6 +255,12 @@ class MPIFSI(FSI):
         # reference computes it before the acceleration loop)
         fluid.fsi_stress_nodal = k.fsi_stress_nodal(
             moved, fluid.stress_device, solid_stress_nodal, fluid.indicator)
+        if self._tm is not None:
+            # the SA moving-wall distance from the deformed solid boundary
+            # (reference: source/mpi_fsi.cpp:655-660)
+            mv = solid.moved_vertex_coords()
+            self._tm.update_moving_wall_distance(
+                mv[self._sb_vids], self._sb_face_vidx, self.shear_velocities)
         base = fluid.nonzero_constraints if first_step else \
             fluid.zero_constraints
         if not self.use_dirichlet_bc:
@@ -246,6 +283,31 @@ class MPIFSI(FSI):
          solid.fluid_velocity_nodal) = self._mpi_kernels.solid_bc_rows(
             solid.current_displacement, self.fluid.present_solution,
             self.fluid.stress_device)
+        if self._tm is not None:
+            self._update_shear_velocities()
+
+    def _update_shear_velocities(self):
+        """Shear velocity u_tau at each solid boundary vertex for the
+        turbulence wall function (reference: source/mpi_fsi.cpp:784-844).
+        The vertex normal is the UN-normalized mean of the adjacent
+        deformed face unit normals (:795-800); the reference computes an
+        image point but samples the fluid velocity AT the wall vertex
+        itself (:805-814), and so does the port."""
+        fluid, solid = self.fluid, self.solid
+        d = fluid.dim
+        moved = solid.moved_vertex_coords()
+        _, fn = solid._face_geometry(moved)
+        fn = (fn * solid._face_orient[:, None, None])[:, 0, :]
+        vn = self._sb_vertex_mean @ fn
+        idx, unit, found = self._fluid_locate(self._fluid_hash_state,
+                                              moved[self._sb_vids])
+        u = fluid.present_solution[:fluid.n_u].reshape(-1, d)
+        uv = interpolate_nodal(u, fluid._u_cell_nodes, idx, unit,
+                               fluid.params.fluid_velocity_degree, found)
+        normal_part = (uv * vn).sum(dim=-1)[:, None] * vn
+        tangential = torch.linalg.vector_norm(uv - normal_part, dim=-1)
+        ut = self._tm.get_shear_velocity(tangential, self.shear_velocities)
+        self.shear_velocities = torch.where(found, ut, 0.0)
 
     # ------------------------------------------------------------------
     def _contact_tables(self):
@@ -318,6 +380,32 @@ class MPIFSI(FSI):
         if self.penetration_criterion is not None:
             return self.apply_contact_model(first_step)
         return super()._run_solid_step(first_step)
+
+    def _run_phases(self, first_step: bool, verbose: bool) -> int:
+        """One step of the per-phase loop (reference:
+        source/mpi_fsi.cpp:1180-1213), each part inside its step_span: with
+        a turbulence model, its per-step Dirichlet rows from the last
+        step's wall distances after the indicator update (:1199-1203), and
+        its Newton solve before the fluid's."""
+        span = self.step_span or (lambda name: nullcontext())
+        tm = self._tm
+        with self.timer.scope("Find solid BC"), span("coupling"):
+            self.find_solid_bc()
+        with self.timer.scope("Run solid solver"), span("solid"):
+            retries = self._run_solid_step(first_step)
+        with self.timer.scope("Update indicator"), span("coupling"):
+            self.update_solid_box_and_indicator()
+        if tm is not None:
+            with span("SA"):
+                tm.update_boundary_condition(first_step)
+        with self.timer.scope("Find fluid BC"), span("coupling"):
+            zero_ext, nonzero_ext = self.find_fluid_bc(first_step)
+        if tm is not None:
+            with self.timer.scope("Run turbulence model"), span("SA"):
+                tm.run_one_step(True)
+        with self.timer.scope("Run fluid solver"), span("fluid Newton"):
+            self._run_fluid_step(zero_ext, nonzero_ext, verbose)
+        return retries
 
     # ------------------------------------------------------------------
     def run(self, verbose: bool = True):

@@ -12,7 +12,10 @@ same step number and time.  A fluid's state also carries the clock of
 its time-dependent hard-coded BCs, which of them are still alive (SCnsEX
 lets them expire), their expiry limits and the Dirichlet values last
 built from them, so a SUPG or SCnsEX run continues from the same point in
-either package.
+either package.  `turbulence_state(model, fsi)` / `load_turbulence_state`
+carry a Spalart-Allmaras model's state (nu~, the eddy viscosity, the wall
+distances, y+ and the accumulated Dirichlet rows) and, with an MPI
+coupler, its shear velocities and a ControlVolumeFSI's budget history.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ SOLID_OPTIONAL = ("fsi_stress_rows",)
 # the particle state of an RKPM solid (HypoElasticity); its FE-facing
 # vectors follow from it
 RKPM_FIELDS = ("x", "v", "sigma", "_acc")
+# a Spalart-Allmaras model's state
+TURBULENCE_FIELDS = ("present_solution", "eddy_viscosity_nodal",
+                     "fixed_wall_distance", "moving_wall_distance",
+                     "y_plus", "_accum_mask")
 
 
 def to_numpy(a):
@@ -122,3 +129,36 @@ def load_solid_state(solver, state):
         solver._sync()
     else:
         _load(solver, state, SOLID_FIELDS + optional)
+
+
+def turbulence_state(model, fsi=None):
+    """The state of a Spalart-Allmaras model of either package, and with
+    `fsi` (an MPIFSI) its shear velocities and, for a ControlVolumeFSI,
+    the budget history."""
+    out = {f: to_numpy(getattr(model, f)) for f in TURBULENCE_FIELDS}
+    if fsi is not None:
+        out["shear_velocities"] = to_numpy(fsi.shear_velocities)
+        if hasattr(fsi, "cv_history"):
+            out["cv_history"] = [dict(h) for h in fsi.cv_history]
+    return out
+
+
+def load_turbulence_state(model, state, fsi=None):
+    """Write a turbulence_state dict into a port model set up on the same
+    mesh (and into `fsi`, the port coupler, when given); the fluid's eddy
+    viscosity follows."""
+    for f in TURBULENCE_FIELDS:
+        cur = getattr(model, f)
+        arr = np.asarray(state[f])
+        if tuple(arr.shape) != tuple(cur.shape):
+            raise ValueError(f"{f}: state has shape {arr.shape}, the "
+                             f"model {tuple(cur.shape)}")
+        setattr(model, f, torch.tensor(arr, dtype=cur.dtype,
+                                       device=model.device))
+    model.fluid.eddy_viscosity_nodal = model.eddy_viscosity_nodal
+    if fsi is not None:
+        fsi.shear_velocities = torch.tensor(
+            state["shear_velocities"], dtype=real_dtype(),
+            device=fsi.device)
+        if "cv_history" in state:
+            fsi.cv_history = [dict(h) for h in state["cv_history"]]

@@ -126,3 +126,18 @@ class Constraints:
                                            self.dirichlet_values)
         new.fixed = self.fixed | add
         return new
+
+    def with_dirichlet(self, mask, values):
+        """New Constraints with the same hanging tables and the given
+        Dirichlet rows (device tensors), replacing this set's: built on
+        the device, with no host copy."""
+        new = Constraints.__new__(Constraints)
+        new.n_dofs = self.n_dofs
+        new.any_hanging = self.any_hanging
+        new.hang_idx = self.hang_idx
+        new.hang_w = self.hang_w
+        new.hanging = self.hanging
+        new.dirichlet = mask
+        new.dirichlet_values = values
+        new.fixed = mask | self.hanging
+        return new

@@ -314,6 +314,8 @@ class FluidSolverBase:
 
     def save_checkpoint(self, step: Optional[int] = None,
                         prefix: str = "fluid"):
+        # the JAX package also stores an attached turbulence model's state
+        # here (nu~, wall distance, y+, accumulated rows)
         raise NotImplementedError(
             "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
             "and checkpoints)")
@@ -340,9 +342,14 @@ class FluidSolverBase:
         for i in range(d):
             for j in range(i, d):
                 point_data[f"tau_{i}{j}"] = tau[:n_vert, i, j]
+        # FSI body force and eddy viscosity, when active (reference:
+        # source/mpi_fluid_solver.cpp:500-556)
         fsi_acc = self.fsi_acc_nodal.cpu().numpy()
         if np.any(fsi_acc):
             point_data["fsi_force"] = fsi_acc[:n_vert]
+        eddy = getattr(self, "eddy_viscosity_nodal", None)
+        if eddy is not None:
+            point_data["eddy_viscosity"] = eddy.cpu().numpy()[:n_vert]
         write_vtu(f"{prefix}-{step:06d}.vtu", self.mesh,
                   point_data=point_data,
                   cell_data={"indicator": self.indicator.cpu().numpy()})

@@ -53,9 +53,6 @@ CP_TO_CV = 1.4          # reference: source/mpi_scnsim.cpp:124
 ATM = 1013250.0         # reference: source/mpi_scnsim.cpp:125
 KAPPA_S = 1e4           # reference: source/mpi_scnsim.cpp:126
 
-_TURBULENCE = ("the Spalart-Allmaras model is not ported yet (ROADMAP.md "
-               "queue 1 item 4: Turbulence)")
-
 es = torch.einsum
 
 
@@ -626,7 +623,9 @@ class SUPGFluidSolver(FluidSolverBase):
         self._make_constraints()
         return torch.stack(vals)
 
-    def _zero_eddy(self):
+    def _eddy_nodal(self):
+        """The attached turbulence model's nodal eddy viscosity, or
+        zeros."""
         eddy = getattr(self, "eddy_viscosity_nodal", None)
         if eddy is None:
             eddy = torch.zeros(self.u_space.n_nodes, dtype=real_dtype(),
@@ -661,31 +660,58 @@ class SUPGFluidSolver(FluidSolverBase):
         long window can be split into several calls without replaying BC
         rows.
 
-        turbulence: a Spalart-Allmaras model steps before each fluid step
-        in the JAX package; the model is not ported, so anything but None
-        raises NotImplementedError.
+        turbulence: optional SpalartAllmaras model (standalone runs): its
+        step (make_device_step) runs BEFORE each fluid step on the
+        previous fluid solution, the reference alternation
+        (source/mpi_supg_solver.cpp:458-468), and its eddy viscosity
+        enters that fluid step.  The returned fn is then fn(present,
+        stress, nu, n_steps, start=0) -> (present, stress, nu,
+        max_rel_res, max_newton_iters, max_sa_rel_res); the nonzero SA
+        constraints apply at the step with index 0 only.
 
         The JAX package compiles the window into one dispatch; here it is
         an eager loop on device tensors, and every Krylov iteration still
         ends in a host synchronisation (la/krylov.py)."""
-        if turbulence is not None:
-            raise NotImplementedError(_TURBULENCE)
         cons = self.zero_constraints
         ucons = self.u_constraints
         pcons = self.p_constraints
-        eddy = self._zero_eddy()
+        eddy0 = self._eddy_nodal()
         nz = self.nonzero_constraints
+        sa_step = turbulence.make_device_step() if turbulence is not None \
+            else None
+
+        def one_step(present, stress_nodal, i, eddy):
+            eval_pt = present if bc_values is None else \
+                nz.apply_increment_with(present, bc_values[i])
+            present, rel, it = self._newton_loop(
+                eval_pt, present, self.indicator, self.fsi_acc_nodal,
+                self.fsi_stress_nodal, stress_nodal, eddy, cons, ucons,
+                pcons)
+            return present, self._update_stress_impl(present), rel, it
+
+        if sa_step is not None:
+            def run_n_sa(present, stress_nodal, nu, n_steps, start=0):
+                worst_rel = worst_it = worst_sa = 0
+                for i in range(start, start + int(n_steps)):
+                    # nonzero SA constraints are ADDITIVE increments: once,
+                    # at the very first step (the host loop's
+                    # run_one_step(True) then (False))
+                    nu, eddy, sa_rel, _ = sa_step(nu, present, i == 0)
+                    present, stress_nodal, rel, it = one_step(
+                        present, stress_nodal, i, eddy)
+                    worst_rel, worst_it = max(worst_rel, rel), max(worst_it,
+                                                                   it)
+                    worst_sa = max(worst_sa, sa_rel)
+                return (present, stress_nodal, nu, worst_rel, worst_it,
+                        worst_sa)
+
+            return run_n_sa
 
         def run_n(present, stress_nodal, n_steps, start=0):
             worst_rel, worst_it = 0.0, 0
-            for i in range(int(n_steps)):
-                eval_pt = present if bc_values is None else \
-                    nz.apply_increment_with(present, bc_values[start + i])
-                present, rel, it = self._newton_loop(
-                    eval_pt, present, self.indicator, self.fsi_acc_nodal,
-                    self.fsi_stress_nodal, stress_nodal, eddy, cons, ucons,
-                    pcons)
-                stress_nodal = self._update_stress_impl(present)
+            for i in range(start, start + int(n_steps)):
+                present, stress_nodal, rel, it = one_step(
+                    present, stress_nodal, i, eddy0)
                 worst_rel, worst_it = max(worst_rel, rel), max(worst_it, it)
             return present, stress_nodal, worst_rel, worst_it
 
@@ -709,21 +735,25 @@ class SUPGFluidSolver(FluidSolverBase):
 
         return step
 
-    def _refuse_turbulence_model(self):
-        """run() and run_on_device() step an attached turbulence model in
-        the JAX package; the model is not ported."""
-        if getattr(self, "turbulence_model", None) is not None:
-            raise NotImplementedError(_TURBULENCE)
-
     def run_on_device(self, verbose: bool = True):
         """run() with the whole time loop through make_on_device_stepper;
         results match the host run().  The production / benchmark path
-        for standalone SUPG runs.  Per-step VTU/PVD/checkpoint writes are
-        skipped (only the final state is kept)."""
+        for standalone SUPG runs.  An attached Spalart-Allmaras model
+        steps inside the stepper, before each fluid step; only its FSI
+        wall-function mode (per-step moving-wall distances and Dirichlet
+        rows, driven by MPIFSI) falls back to run(), as in the JAX
+        package.  Per-step VTU/PVD/checkpoint writes are skipped (only
+        the final state is kept)."""
         if not self._setup_done:
             self._refine_setup_with_mg()
             self._setup_done = True
-        self._refuse_turbulence_model()
+        tm = getattr(self, "turbulence_model", None)
+        if tm is not None and not hasattr(tm, "space"):
+            tm.setup()
+        if tm is not None and (tm._step_zero is not None or
+                               tm._step_nonzero is not None):
+            # FSI wall-function mode: the host loop
+            return self.run(verbose=verbose)
         dt = self.time.get_delta_t()
         n = int(round((self.time.end() - self.time.current()) / dt))
         if n <= 0:
@@ -736,9 +766,18 @@ class SUPGFluidSolver(FluidSolverBase):
             table = torch.zeros((n, self.n_dofs), dtype=real_dtype(),
                                 device=self.device)
             table[0] = self.nonzero_constraints.dirichlet_values
-        stepper = self.make_on_device_stepper(table)
-        sol, stress, rel, its = stepper(self.present_solution,
-                                        self.stress_device, n)
+        stepper = self.make_on_device_stepper(table, turbulence=tm)
+        if tm is not None:
+            sol, stress, nu, rel, its, sa_rel = stepper(
+                self.present_solution, self.stress_device,
+                tm.present_solution, n)
+            if sa_rel > self.params.fluid_tolerance:
+                raise RuntimeError("Too many Newton iterations!")
+            tm.present_solution = nu
+            tm.update_eddy_viscosity()
+        else:
+            sol, stress, rel, its = stepper(self.present_solution,
+                                            self.stress_device, n)
         if rel > self.params.fluid_tolerance:
             raise RuntimeError("Too many Newton iterations!")
         self.present_solution = sol
@@ -765,7 +804,7 @@ class SUPGFluidSolver(FluidSolverBase):
         eval_pt = self.present_solution
         if apply_nonzero_constraints:
             eval_pt = nonzero_cons.apply_increment(eval_pt)
-        eddy = self._zero_eddy()
+        eddy = self._eddy_nodal()
 
         current_res = 1.0
         initial_res = 1.0
@@ -806,12 +845,19 @@ class SUPGFluidSolver(FluidSolverBase):
     def run(self, verbose: bool = True):
         """reference: source/mpi_supg_solver.cpp:427-486 (time-dependent
         hard-coded BCs advance their own clock and reapply nonzero
-        constraints every step)."""
+        constraints every step; an attached turbulence model steps before
+        the fluid, :458-468)."""
         if not self._setup_done:
             self._refine_setup_with_mg()
-        self._refuse_turbulence_model()
+        tm = getattr(self, "turbulence_model", None)
+        if tm is not None and not hasattr(tm, "space"):
+            tm.setup()
+        if tm is not None:
+            tm.run_one_step(True)
         self.run_one_step(True, verbose=verbose)
         while self.time.end() - self.time.current() > 1e-12:
+            if tm is not None:
+                tm.run_one_step(False)
             if self.hard_coded_bcs:
                 self.bc_time += self.time.get_delta_t()
                 self._make_constraints()

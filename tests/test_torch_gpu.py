@@ -660,3 +660,91 @@ def test_mpi_kernels_and_rk4_cuda_match_cpu(cuda):
     assert torch.equal(got[1].cpu(), ref[1])
     for a, b in zip(got[2:], ref[2:]):
         assert rel_err(a.cpu(), b) <= 1e-12
+
+
+# -- the Spalart-Allmaras model and the vocal fold --------------------------
+
+def _vocal_fold(dev, n_steps=3):
+    from openifem_tpu_torch.cases.vocal_fold import vocal_fold_case
+    return vocal_fold_case(port_package(), n_steps, device=dev)
+
+
+def _sa_set_up(dev):
+    """The coarse vocal fold's fluid and SA model, set up on `dev`."""
+    fsi = _vocal_fold(dev)
+    fsi.fluid.setup()
+    tm = fsi.fluid.turbulence_model
+    tm.setup()
+    return tm
+
+
+@DTYPES
+def test_kernel_at_sa_shape(cuda, dtype):
+    """The scalar layout at the SA's 4 x 4 blocks over its own table (800
+    cells), against the plain version; repeats bitwise equal."""
+    tm = _sa_set_up(cuda)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    A = torch.randn(tm.cell_dofs.shape[0], 4, 4, generator=g, device=cuda,
+                    dtype=dtype)
+    x = torch.randn(tm.n, generator=g, device=cuda, dtype=dtype)
+    cuda_ops.reset_launches()
+    y = ops.element_matvec(A, tm.cell_dofs, tm.n, x)
+    assert cuda_ops.launches[("element_matvec", str(dtype)[6:], 800, 4,
+                              4)] == 1
+    ref = ops.element_matvec_plain(A, tm.cell_dofs, tm.n, x)
+    assert rel_err(y, ref) <= TOL[dtype]
+    assert all(torch.equal(ops.element_matvec(A, tm.cell_dofs, tm.n, x), y)
+               for _ in range(3))
+
+
+def test_sa_newton_iter_cuda_matches_cpu(cuda):
+    """One SA Newton iteration (assembly, Jacobi-preconditioned FGMRES
+    through the kernel) on a seeded state: A_loc and rhs to 1e-12, the
+    update to 1e-10, equal FGMRES counts."""
+    g, c = _both(_sa_set_up)
+    rng = np.random.default_rng(31)
+    lam = c.params.viscosity / c.params.fluid_rho
+    seeds = dict(
+        eval_pt=lam * (2.0 + rng.normal(size=c.n)),
+        present=lam * (2.0 + rng.normal(size=c.n)),
+        sol=0.5 * rng.normal(size=c.fluid.n_dofs),
+        wall=np.minimum(c.fixed_wall_distance.numpy(),
+                        0.05 + rng.random(c.n)),
+        ind=(rng.random(c.fluid.mesh.n_cells) < 0.1).astype(float))
+
+    def outputs(tm, dev):
+        args = [torch.as_tensor(v, device=dev) for v in seeds.values()]
+        A, rhs = tm._assemble(*args)
+        du, rn, its = tm._newton_iter(*args, tm.zero_constraints)
+        return A, rhs, du, rn, its
+
+    gA, gr, gdu, grn, gits = outputs(g, cuda)
+    cA, cr, cdu, crn, cits = outputs(c, "cpu")
+    assert rel_err(gA.cpu(), cA) <= 1e-12 and rel_err(gr.cpu(), cr) <= 1e-12
+    assert abs(grn - crn) <= 1e-12 * crn and gits == cits > 1
+    assert rel_err(gdu.cpu(), cdu) <= 1e-10
+
+
+def test_vocal_fold_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """Three ControlVolumeFSI.run steps of the coarse vocal fold: 1e-6 with
+    equal fluid Newton, SA Newton and contact-retry counts."""
+    monkeypatch.chdir(tmp_path)
+
+    def run(dev):
+        fsi = _vocal_fold(dev)
+        fsi.run(verbose=False)
+        return fsi
+
+    g, c = _both(run)
+    counts = [[(s["fluid_newton"], s["sa_newton"], s["solid_retries"])
+               for s in f.step_log] for f in (g, c)]
+    assert counts[0] == counts[1] and len(counts[0]) == 3
+    for a, b in ((g.fluid.present_solution, c.fluid.present_solution),
+                 (g.fluid.turbulence_model.present_solution,
+                  c.fluid.turbulence_model.present_solution),
+                 (g.solid.current_displacement,
+                  c.solid.current_displacement)):
+        assert rel_err(a.cpu(), b) <= 1e-6
+    for gh, ch in zip(g.cv_history, c.cv_history):
+        assert all(abs(gh[k] - ch[k]) <= max(1e-6 * abs(ch[k]), 1e-12)
+                   for k in ch)

@@ -29,7 +29,9 @@ def test_port_never_imports_jax():
         "          'cases.acoustic_duct', 'cases.fluid_cylinder',\n"
         "          'fsi.mpi_fsi', 'solvers.solid.linear',\n"
         "          'solvers.solid.shared', 'solvers.solid.hypo',\n"
-        "          'cases.fsi_wall_3d', 'cases.mpi_block'):\n"
+        "          'cases.fsi_wall_3d', 'cases.mpi_block',\n"
+        "          'solvers.turbulence.spalart_allmaras', 'fsi.cv_fsi',\n"
+        "          'cases.vocal_fold'):\n"
         "    assert 'openifem_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     r = _run(code)

@@ -1,7 +1,10 @@
 """The port's FSI coupling kernels (fsi/interp.py, FSI._FSIKernels) against
 the JAX package on the coarse leaflet: located cell indices are equal,
 unit coordinates agree to 1e-12, and the indicator, the Dirichlet masks
-and values and the traction match for a deformed solid."""
+and values and the traction match for a deformed solid.  Also the batched
+invert_bilinear (2-D and 3-D), the all-pairs locate_points (equal cells,
+and the same answer as the cell hash) and sph_interpolate, within 1e-12
+of the JAX package."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -113,3 +116,80 @@ def test_hash_capacity_check_raises_on_overstretch(pair):
     stretched[-1] += 100.0
     with pytest.raises(RuntimeError, match="cell hash overflow"):
         pfsi._check_solid_hash_capacity(stretched)
+
+
+def _distorted_cells(rng, n, dim):
+    """n unit cells in z-order with their corners moved by 0.15 sigma,
+    and points at known unit coordinates inside them."""
+    corners = np.array([[(v >> a) & 1 for a in range(dim)]
+                        for v in range(2 ** dim)], float)
+    verts = corners[None] + 0.15 * rng.normal(size=(n, 2 ** dim, dim))
+    xi = rng.random((n, dim))
+    f = [[1 - xi[:, a], xi[:, a]] for a in range(dim)]
+    N = np.stack([np.prod([f[a][int(c[a])] for a in range(dim)], axis=0)
+                  for c in corners], -1)
+    return verts, xi, np.einsum("nv,nvd->nd", N, verts)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_invert_bilinear(dim):
+    rng = np.random.default_rng(10 + dim)
+    verts, xi, pts = _distorted_cells(rng, 40, dim)
+    want = jinterp.invert_bilinear(jnp.asarray(pts), jnp.asarray(verts))
+    got = interp.invert_bilinear(torch.from_numpy(pts),
+                                 torch.from_numpy(verts))
+    assert rel_err(got, want) <= 1e-12
+    assert np.abs(got.numpy() - xi).max() <= 1e-10
+    # broadcast batches: every point against every cell.  Six Newton
+    # steps leave far (point, cell) pairs unconverged, where Cramer's rule
+    # and the explicit inverse round apart: 1e-12 near the cell, 1e-10
+    # over all pairs
+    want = np.asarray(jinterp.invert_bilinear(
+        jnp.asarray(pts)[:, None].repeat(40, axis=1),
+        jnp.asarray(verts)[None].repeat(40, axis=0)))
+    got = interp.invert_bilinear(torch.from_numpy(pts)[:, None],
+                                 torch.from_numpy(verts)[None]).numpy()
+    assert got.shape == (40, 40, dim) and rel_err(got, want) <= 1e-10
+    near = ((want > -0.5) & (want < 1.5)).all(axis=-1)
+    assert near.sum() > 40 and rel_err(got[near], want[near]) <= 1e-12
+
+
+def test_locate_points(pair):
+    """All-pairs location on the coarse leaflet's fluid mesh: the JAX
+    package's cells and unit coordinates, and the cell hash's."""
+    jfsi, pfsi = pair
+    mesh = pfsi.fluid.mesh
+    cv = mesh.vertices[mesh.cells]
+    lo, hi = cv.min(axis=1), cv.max(axis=1)
+    rng = np.random.default_rng(4)
+    pts = np.concatenate([rng.random((200, 2)) * [4.0, 1.0],
+                          np.round(rng.random((30, 2)) * [40, 10]) / 10,
+                          [[-0.5, 0.5], [4.5, 0.5]]])
+    ji, ju, jf = jinterp.locate_points(*map(jnp.asarray, (pts, cv, lo, hi)))
+    pi, pu, pf = interp.locate_points(*map(torch.from_numpy,
+                                           (pts, cv, lo, hi)))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pf.numpy(), np.asarray(jf))
+    assert pf.numpy()[:-2].all() and not pf.numpy()[-2:].any()
+    assert rel_err(pu, ju) <= 1e-12
+    hi_, hu, hf = pfsi._fluid_locate(pfsi._fluid_hash_state,
+                                     torch.from_numpy(pts))
+    np.testing.assert_array_equal(hi_.numpy(), pi.numpy())
+    assert np.abs(hu.numpy() - pu.numpy()).max() <= 1e-12
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sph_interpolate(dim):
+    rng = np.random.default_rng(20 + dim)
+    centers = rng.random((60, dim))
+    diam = 0.1 + 0.2 * rng.random(60)
+    values = rng.normal(size=(60, dim))
+    # the last target lies beyond every kernel's support
+    targets = np.concatenate([rng.random((30, dim)), [[9.0] * dim]])
+    want = jinterp.sph_interpolate(*map(jnp.asarray,
+                                        (targets, centers, diam, values)))
+    got = interp.sph_interpolate(*map(torch.from_numpy,
+                                      (targets, centers, diam, values)))
+    assert rel_err(got, want) <= 1e-12
+    assert np.abs(got.numpy()[-1]).max() == 0 and \
+        np.abs(got.numpy()[:-1]).max() > 0

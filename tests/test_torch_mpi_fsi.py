@@ -13,8 +13,9 @@ package, on configurations built in code for both
   fluid solution, fluid nodal stress and solid displacement within 1e-6,
   equal Newton counts per step and equal contact retry counts;
 - what the port does not carry raises NotImplementedError naming its
-  ROADMAP.md item: the restart from checkpoints in the working directory,
-  interface refinement and the turbulence hooks.
+  ROADMAP.md item: the restart from checkpoints in the working directory
+  and interface refinement (the turbulence hooks are ported:
+  test_torch_cv_fsi.py runs them).
 """
 
 import glob
@@ -123,8 +124,8 @@ def test_run_three_steps_match_jax(config):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """The restart branch, interface refinement and the turbulence hooks
-    raise NotImplementedError naming their ROADMAP.md items."""
+    """The restart branch and interface refinement raise
+    NotImplementedError naming their ROADMAP.md items."""
     monkeypatch.chdir(tmp_path)
     np.savez(tmp_path / "fluid-000002.checkpoint.npz", x=np.zeros(1))
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
@@ -135,8 +136,4 @@ def test_refusals(tmp_path, monkeypatch):
     fsi.params.refinement_interval = fsi.params.time_step
     with pytest.raises(NotImplementedError,
                        match="queue 1 item 5: AMR and checkpoints"):
-        fsi.run(verbose=False)
-    fsi = build(True, "body_force")
-    fsi.fluid.turbulence_model = object()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         fsi.run(verbose=False)

@@ -20,6 +20,8 @@ Tolerances, relative to the reference's max norm:
   with f32_matrix A_loc 1e-5 and the rhs, which stays f64, 1e-12.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,15 +201,25 @@ def test_neumann_rhs_and_tables_match(scnsim_pair):
 
 
 def test_turbulence_raises_and_names_the_roadmap(scnsim_pair):
+    """The stepper takes a Spalart-Allmaras model (its signature gains
+    nu~ and the SA residual); with a model attached, what still raises is
+    the checkpoint of the fluid and model state, naming ROADMAP.md queue 1
+    item 5 (the hooks themselves: test_torch_turbulence.py)."""
+    from openifem_tpu_torch.solvers.turbulence import SpalartAllmaras
     _, pfl, _ = scnsim_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pfl.make_on_device_stepper(turbulence=object())
-    pfl.turbulence_model = object()
+    model = SpalartAllmaras(pfl)
     try:
-        with pytest.raises(NotImplementedError, match="Turbulence"):
-            pfl.run(verbose=False)
+        model.setup()
+        stepper = pfl.make_on_device_stepper(turbulence=model)
+        assert list(inspect.signature(stepper).parameters) == [
+            "present", "stress_nodal", "nu", "n_steps", "start"]
+        pfl.turbulence_model = model
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item 5"):
+            pfl.save_checkpoint()
     finally:
-        del pfl.turbulence_model
+        pfl.__dict__.pop("turbulence_model", None)
+        pfl.__dict__.pop("eddy_viscosity_nodal", None)
 
 
 @pytest.mark.parametrize("galerkin", [True, False])

@@ -60,7 +60,11 @@ def test_three_steps_match_jax(tmp_path, monkeypatch):
         runs.append((fsi, log))
     (jf, jlog), (pf, plog) = runs
     assert plog == jlog and len(plog) == 3
-    assert spans == ["coupling", "solid RK4", "coupling", "fluid Newton"] * 2
+    # the per-phase first step's parts, then two coupled steps'
+    assert spans == (["coupling", "solid", "coupling", "coupling",
+                      "fluid Newton"]
+                     + ["coupling", "solid RK4", "coupling",
+                        "fluid Newton"] * 2)
     assert [s["coupled"] for s in pf.step_log] == [False, True, True]
     assert np.array_equal(np_(pf.fluid.indicator), np_(jf.fluid.indicator))
     assert np_(pf.fluid.indicator).sum() > 0

@@ -24,6 +24,9 @@ from openifem_tpu.solvers.fluid.supg import SCnsIM as JaxSCnsIM
 from openifem_tpu.solvers.fluid.supg import SerialSCnsIM as JaxSerialSCnsIM
 from openifem_tpu.solvers.fluid.supg import SUPGInsIM as JaxSUPGInsIM
 from openifem_tpu.fsi.mpi_fsi import MPIFSI as JaxMPIFSI
+from openifem_tpu.fsi.cv_fsi import ControlVolumeFSI as JaxControlVolumeFSI
+from openifem_tpu.solvers.turbulence import \
+    make_turbulence_model as jax_make_turbulence_model
 from openifem_tpu.solvers import solid as jax_solid
 from openifem_tpu_torch import interop
 from openifem_tpu_torch.cases.fsi_leaflet import leaflet_case, port_package
@@ -45,6 +48,8 @@ JAX = SimpleNamespace(AllParameters=openifem_tpu.AllParameters,
                       InsIMEX=JaxInsIMEX, SUPGInsIM=JaxSUPGInsIM,
                       SCnsIM=JaxSCnsIM, SerialSCnsIM=JaxSerialSCnsIM,
                       SCnsEX=JaxSCnsEX, FSI=JaxFSI, MPIFSI=JaxMPIFSI,
+                      ControlVolumeFSI=JaxControlVolumeFSI,
+                      make_turbulence_model=jax_make_turbulence_model,
                       **{name: getattr(jax_solid, name)
                          for name in jax_solid.__all__})
 PORT = port_package()
@@ -249,6 +254,20 @@ def supg_solver(port, solver="SCnsIM", local=True, fields=None, mesh=None,
         fl.set_body_force(_body_force)
         fl.set_sigma_pml_field(_sigma_pml)
     fl.setup()
+    return fl
+
+
+def sa_solver(port, solver="SCnsIM", n_steps=3, **kw):
+    """supg_solver's channel with a Spalart-Allmaras model attached and set
+    up: inflow on the inlet (id 0), walls on the floor and the moving top
+    (ids 2, 3), initial coefficient 3."""
+    fields = supg_fields(n_steps)
+    fields.update(n_spalart_allmaras_model_bcs=3,
+                  spalart_allmaras_model_bcs={0: 1, 2: 0, 3: 0},
+                  spalart_allmaras_initial_condition_coefficient=3.0)
+    fl = supg_solver(port, solver, fields=fields, **kw)
+    pkg = PORT if port else JAX
+    pkg.make_turbulence_model("Spalart-Allmaras", fl).setup()
     return fl
 
 

@@ -181,7 +181,7 @@ def _scnsim(torch, steps):
         sol, stress = state[0], state[1]
         A_loc, rhs = fl._assemble(sol, sol, fl.indicator, fl.fsi_acc_nodal,
                                   fl.fsi_stress_nodal, stress,
-                                  fl._zero_eddy())
+                                  fl._eddy_nodal())
         b = fl.zero_constraints.condense_rhs(rhs)
         P = fl._make_preconditioner(A_loc, fl.u_constraints,
                                     fl.p_constraints)
