@@ -2,7 +2,7 @@
 """Drive the PyTorch port (openifem_tpu_torch) once on one CUDA GPU.
 
     python3 chip_smoke.py [--phases 14,15] [--wall3d-depth 1,3]
-                          [--vocal-depth 1,3]
+                          [--vocal-depth 1,3] [--amr-depth 10]
 
 Phases, one line each; any failure raises and exits non-zero before the
 last line is printed (--phases runs a subset, for development; phases 0
@@ -108,7 +108,34 @@ and 1 always run):
      set-up seconds and peak memory; every step converged, finite fields
      and budgets, present_KE >= 0, eddy viscosity finite and >= 0,
      covered cells.
-Phases 8-17 then hold every kernel shape they launched against its plain
+ 18. AMR, checkpoints and the flat shell, coarse, CUDA vs CPU (f64): the
+     coarse leaflet (h = 0.1, refinements [0, 1], element branch) through
+     FSI.run with interface refinement and a save every 2 steps, 4 steps
+     (equal meshes and Newton counts, 1e-6), then FSI.resume on the card
+     from the step-2 checkpoints to step 4 against the uninterrupted card
+     run (1e-10); the disc in the cavity (cases/fsi_disc.py), whose
+     interface refinement changes its mesh, the same way (4 steps, a save
+     every 2, resumed from step 2); the cylinder at refine 1 through
+     InsIM.run with Kelly AMR (levels 1..3) after every step, 3 steps
+     (equal meshes and Newton counts, 1e-6); the 2-D MPI block (body
+     force) through MPIFSI.run saved at step 2 and restarted to step 4
+     (1e-6 against the CPU, 2e-10 against the uninterrupted card run);
+     the shell plate (16 x 16) and bar (16 x 4): 1e-10, CG counts at most 1
+     apart, the closed forms;
+ 19. the adaptive leaflet at full width (fsi_leaflet with the bench
+     knobs, 17,249 dofs before adaptation; cases.fsi_leaflet.ADAPTIVE:
+     interface refinement every 2 steps, a checkpoint every 5) through
+     FSI.run for --amr-depth steps (default 10): per step ms, dofs,
+     Newton and Krylov counts, plan builds and dense-block time; per
+     refinement its seconds split into coarsen + refine, setup, transfer,
+     coupling tables and the rest (distances and flags); checkpoint bytes
+     and seconds; peak memory; every step converged, finite, 1e-4 < max
+     d_x < 0.5, plans built only in the step after a refinement that
+     changed the mesh; then FSI.resume on the card from the step-5
+     checkpoints (load seconds, difference to the uninterrupted run
+     printed); the shell plate at 64 x 64 cells (21,125 dofs): CG
+     iterations and solve ms, within 4 % of Kirchhoff.
+Phases 8-19 then hold every kernel shape they launched against its plain
 version as phase 2 does, at the path's own tables.  Phase 2 also checks
 the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p 8 x 24) in
 f32 and f64 on a 12^3 box.
@@ -122,7 +149,7 @@ if a plan is built after the configuration's first step; phases 12 and
 count their launches per (layout, dtype, number of cells, block rows,
 block columns); the script fails if a path launched a shape that no phase
 checked.  Then a JSON line with one entry per such shape (launches summed
-over the paths of phases 4 and 6-17, and per step of each path; error and
+over the paths of phases 4 and 6-19, and per step of each path; error and
 times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
@@ -197,6 +224,13 @@ WALL3D_WARM, WALL3D_TIMED = 1, 3
 VOCAL_WARM, VOCAL_TIMED = 1, 3
 # the reference's one-core CPU rate, dof-steps per second
 REFERENCE_DOF_STEPS = 1505
+# steps of the adaptive leaflet (phase 19): the default and the least
+AMR_STEPS = 10
+# the MPI block's card restart against the uninterrupted card run: the
+# card's index_add_ atomics round differently from run to run; restarts
+# and repeated runs of the block differed from a first run by 1.1e-11 to
+# 7.9e-11 on an H100 80GB HBM3 at 700 W
+BLOCK_RESTART_TOL = 2e-10
 
 
 def say(msg):
@@ -1768,6 +1802,583 @@ def phase17_vocal_fold(torch, results, depth):
     return launches, t_per
 
 
+# -- AMR, checkpoints and the flat shell -----------------------------------
+
+def _snapshot(fl, levels=()):
+    """(the tables of a fluid solver's current mesh that kernel_cases
+    reads, the pressure V-cycle's levels): a refinement replaces the
+    solver's tables, so each mesh's are kept for the kernel checks."""
+    from types import SimpleNamespace
+    names = ("dim", "nlu", "nu_loc", "nlp", "n_u", "n_p", "n_dofs",
+             "cell_dofs", "cell_dofs_u", "cell_dofs_p", "cell_nodes_u")
+    snap = SimpleNamespace(mesh=SimpleNamespace(n_cells=fl.mesh.n_cells),
+                           **{n: getattr(fl, n) for n in names
+                              if hasattr(fl, n)})
+    return snap, tuple(levels)
+
+
+def _record_tables(fl):
+    """A list holding the fluid's current tables (when set up) and, after
+    every later setup(), the new mesh's."""
+    snaps = []
+    if getattr(fl, "_setup_done", False):
+        mg = getattr(fl, "_pressure_mg", None)
+        snaps.append(_snapshot(fl, mg.levels if mg is not None else ()))
+    real = fl.setup
+
+    def setup(*args, **kw):
+        out = real(*args, **kw)
+        snaps.append(_snapshot(fl))
+        return out
+    fl.setup = setup
+    return snaps
+
+
+def _check_snapshots(torch, label, snaps, solid, launches, results,
+                     seed=181):
+    """Hold every shape in `launches` against its plain version at the
+    tables of each mesh a path ran on (and the solid's)."""
+    for name_dt in sorted({k[1] for k in launches}):
+        dt = getattr(torch, name_dt)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for snap, levels in snaps:
+            check_kernels(torch, label,
+                          kernel_cases(torch, snap, solid, dt, gen, levels),
+                          dt, results, only=set(launches))
+
+
+def shell_kernel_cases(torch, shell, dt, gen):
+    """The scalar layout at the flat shell's own table (5 dofs x 4 nodes
+    per cell: 20 x 20 blocks for Q1), with random blocks from `gen`."""
+    from openifem_tpu_torch.la import operators as ops
+    n_c, nl = shell.cell_dofs.shape
+    A = torch.randn(n_c, nl, nl, generator=gen, device="cuda", dtype=dt)
+    x = torch.randn(shell.n_dofs, generator=gen, device="cuda", dtype=dt)
+    return [("element_matvec", n_c, "shell stiffness",
+             lambda: ops.element_matvec(A, shell.cell_dofs, shell.n_dofs, x),
+             lambda: ops.element_matvec_plain(A, shell.cell_dofs,
+                                              shell.n_dofs, x))]
+
+
+def _check_shell(torch, label, shell, launches, results):
+    for name_dt in sorted({k[1] for k in launches}):
+        dt = getattr(torch, name_dt)
+        gen = torch.Generator(device="cuda").manual_seed(191)
+        check_kernels(torch, label, shell_kernel_cases(torch, shell, dt, gen),
+                      dt, results, only=set(launches))
+
+
+class _InDir:
+    """Run in a fresh subdirectory of the working directory (checkpoints
+    are written to the working directory)."""
+
+    def __init__(self, name):
+        self.path = os.path.abspath(name)
+
+    def __enter__(self):
+        self.back = os.getcwd()
+        os.makedirs(self.path, exist_ok=True)
+        os.chdir(self.path)
+        return self.path
+
+    def __exit__(self, *exc):
+        os.chdir(self.back)
+
+
+def _on_card(torch, fn, *args, **kw):
+    """(fn's result, its launches, seconds) with the counts zeroed just
+    before and read just after."""
+    from openifem_tpu_torch.la import cuda_ops
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, cuda_ops.launches.copy(), time.perf_counter() - t0
+
+
+def phase18_coarse_amr(torch, results):
+    """AMR, checkpoints and the shell, coarse, CUDA against CPU (f64):
+    the leaflet with interface refinement and a save every 2 steps, then
+    a restart on the card; the cylinder with Kelly AMR every step; the
+    2-D MPI block saved at step 2 and restarted; the shell plate and
+    bar.  Then every shape launched against its plain version."""
+    import numpy as np
+
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.cases import fsi_disc as fd
+    from openifem_tpu_torch.cases import mpi_block as mb
+    from openifem_tpu_torch.cases import shell_plate as sp
+    label = "phase 18"
+    pkg = fc.port_package()
+    paths = {}
+
+    # (a) the coarse leaflet: FSI.run, refinement and save every 2 steps
+    def leaflet(dev, stop=4, resume=False):
+        fsi = _leaflet_solvers(dev, 0.1, (0, 1), 4, "element",
+                               refine_every=2, save_every=2)
+        # interrupted after step `stop`, its parameters unchanged (a
+        # shorter end time would skip the initial refinement)
+        fsi.time.time_end = stop * fsi.params.time_step
+        snaps = _record_tables(fsi.fluid)
+        cells = []
+        real = fsi.refine_mesh
+
+        def refine(*args, **kw):
+            real(*args, **kw)
+            cells.append(fsi.fluid.mesh.n_cells)
+        fsi.refine_mesh = refine
+        (fsi.resume if resume else fsi.run)(verbose=False)
+        return fsi, snaps, cells
+
+    with _InDir("leaflet_cuda"):
+        (g, g_snaps, g_cells), launches, t_gpu = _on_card(torch, leaflet,
+                                                          "cuda")
+    with _InDir("leaflet_cpu"):
+        t0 = time.perf_counter()
+        c, _, c_cells = leaflet("cpu")
+        t_cpu = time.perf_counter() - t0
+    with _InDir("leaflet_restart"):
+        (_, p_snaps, _), l2, _ = _on_card(torch, leaflet, "cuda", 2)
+        (r, r_snaps, _), l3, _ = _on_card(torch, leaflet, "cuda", 4, True)
+    errs = {"fluid solution": _rel(g.fluid.present_solution,
+                                   c.fluid.present_solution),
+            "solid displacement": _rel(g.solid.current_displacement,
+                                       c.solid.current_displacement)}
+    restart = {"fluid solution": _rel(r.fluid.present_solution,
+                                      g.fluid.present_solution),
+               "solid displacement": _rel(r.solid.current_displacement,
+                                          g.solid.current_displacement)}
+    same_mesh = (np.array_equal(g.fluid.mesh.cells, c.fluid.mesh.cells)
+                 and np.array_equal(r.fluid.mesh.cells, g.fluid.mesh.cells)
+                 and g_cells == c_cells)
+    ok = (same_mesh and _counts(g) == _counts(c) and len(g.step_log) == 4
+          and all(e <= 1e-6 for e in errs.values())
+          and all(e <= 1e-10 for e in restart.values())
+          and r.time.get_timestep() == 4 and len(r.step_log) == 2)
+    say(f"{label}: coarse leaflet (element branch, f64) through FSI.run, "
+        f"interface refinement and a save every 2 steps, 4 steps: fluid "
+        f"cells after each refinement CUDA {g_cells} CPU {c_cells}, "
+        f"{g.fluid.n_dofs} + {g.solid.n_dofs} dofs at the end; CUDA vs CPU "
+        + ", ".join(f"{k} rel err {v:.3e}" for k, v in errs.items())
+        + f" (rtol 1e-6); Newton (solid, fluid) per step CUDA {_counts(g)}"
+        f" CPU {_counts(c)}; restart on the card from the step-2 "
+        f"checkpoints to step 4 against the uninterrupted card run: "
+        + ", ".join(f"{k} rel err {v:.3e}" for k, v in restart.items())
+        + f" (rtol 1e-10); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "coarse leaflet with AMR and restart failed")
+    _check_snapshots(torch, label, g_snaps + p_snaps + r_snaps, g.solid,
+                     launches + l2 + l3, results)
+    # one path per run: the uninterrupted run, the run cut after step 2
+    # and the restart to step 4
+    paths.update(coarse_amr_leaflet=_path(launches, 4),
+                 coarse_amr_leaflet_to_step2=_path(l2, 2),
+                 coarse_amr_leaflet_resume=_path(l3, 2))
+
+    # the disc in the cavity, whose interface refinement changes the mesh
+    def disc(dev, stop=4, resume=False):
+        fsi = fd.disc_case(pkg, 4, refine_every=2, save_every=2, device=dev)
+        fsi.time.time_end = stop * fsi.params.time_step
+        snaps = _record_tables(fsi.fluid)
+        (fsi.resume if resume else fsi.run)(verbose=False)
+        return fsi, snaps
+
+    with _InDir("disc_cuda"):
+        (gd, d_snaps), dl, t_gpu = _on_card(torch, disc, "cuda")
+    with _InDir("disc_cpu"):
+        t0 = time.perf_counter()
+        cd, _ = disc("cpu")
+        t_cpu = time.perf_counter() - t0
+    with _InDir("disc_restart"):
+        (_, dp_snaps), dl2, _ = _on_card(torch, disc, "cuda", 2)
+        (rd, dr_snaps), dl3, _ = _on_card(torch, disc, "cuda", 4, True)
+    gm, cm = gd.fluid.mesh, cd.fluid.mesh
+    same_mesh = (np.array_equal(gm.cells, cm.cells)
+                 and np.array_equal(gm.level, cm.level)
+                 and np.array_equal(gm.vertices, cm.vertices))
+    errs = {"fluid solution": _rel(gd.fluid.present_solution,
+                                   cd.fluid.present_solution),
+            "solid displacement": _rel(gd.solid.current_displacement,
+                                       cd.solid.current_displacement)}
+    restart = {"fluid solution": _rel(rd.fluid.present_solution,
+                                      gd.fluid.present_solution),
+               "solid displacement": _rel(rd.solid.current_displacement,
+                                          gd.solid.current_displacement)}
+    cells = [snap.mesh.n_cells for snap, _ in d_snaps]
+    ok = (same_mesh and _counts(gd) == _counts(cd) and len(gd.step_log) == 4
+          and all(e <= 1e-6 for e in errs.values()) and len(set(cells)) > 1
+          and np.array_equal(rd.fluid.mesh.cells, gm.cells)
+          and all(e <= 1e-10 for e in restart.values())
+          and len(rd.step_log) == 2)
+    say(f"{label}: disc in the cavity (f64) through FSI.run, interface "
+        f"refinement x2 before the first step and after every 2 steps, a "
+        f"save every 2, 4 steps: fluid cells of each mesh set up {cells}, "
+        f"meshes equal {same_mesh}; CUDA vs CPU " + ", ".join(
+            f"{k} rel err {v:.3e}" for k, v in errs.items())
+        + f" (rtol 1e-6); Newton (solid, fluid) per step CUDA {_counts(gd)}"
+        f" CPU {_counts(cd)}; FSI.resume on the card from the step-2 "
+        f"checkpoints (the adapted mesh rebuilt from the file) to step 4 "
+        f"against the uninterrupted card run: " + ", ".join(
+            f"{k} rel err {v:.3e}" for k, v in restart.items())
+        + f" (rtol 1e-10); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the disc with interface refinement: CUDA and CPU "
+             "disagree, or the restart does")
+    _check_snapshots(torch, label, d_snaps + dp_snaps + dr_snaps, gd.solid,
+                     dl + dl2 + dl3, results)
+    paths.update(coarse_amr_disc=_path(dl, 4),
+                 coarse_amr_disc_to_step2=_path(dl2, 2),
+                 coarse_amr_disc_resume=_path(dl3, 2))
+
+    # (b) the cylinder at refine 1: InsIM.run with Kelly AMR every step
+    def cylinder(dev):
+        fl = fc.cylinder_case(pkg, "r1", refine=1, n_steps=3,
+                              bench_precision=False, device=dev)
+        dt = fl.params.time_step
+        fl.params.refinement_interval = fl.time.refinement_interval = dt
+        snaps = _record_tables(fl)
+        per_step = []
+        real = fl.run_one_step
+
+        def step(*args, **kw):
+            real(*args, **kw)
+            per_step.append((fl.newton_iters, fl.mesh.n_cells, fl.n_dofs))
+        fl.run_one_step = step
+        fl.run(verbose=False)
+        return fl, snaps, per_step
+
+    (gc, c_snaps, g_steps), cyl, t_gpu = _on_card(torch, cylinder, "cuda")
+    t0 = time.perf_counter()
+    cc, _, c_steps = cylinder("cpu")
+    t_cpu = time.perf_counter() - t0
+    err = _rel(gc.present_solution, cc.present_solution)
+    ok = (g_steps == c_steps and len(g_steps) == 3 and err <= 1e-6
+          and np.array_equal(gc.mesh.cells, cc.mesh.cells)
+          and g_steps[-1][1] > c_snaps[0][0].mesh.n_cells)
+    say(f"{label}: cylinder r1 (f64) through InsIM.run, Kelly AMR (levels "
+        f"1..3) after every step, 3 steps: (Newton, cells, dofs after the "
+        f"step's refinement) CUDA {g_steps} CPU {c_steps}; solution rel err"
+        f" {err:.3e} (rtol 1e-6); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the cylinder with Kelly AMR: CUDA and CPU disagree")
+    _check_snapshots(torch, label, c_snaps, None, cyl, results)
+    paths["coarse_amr_cylinder"] = _path(cyl, 3)
+
+    # (c) the 2-D MPI block: saved at step 2, restarted to step 4
+    def block(dev, n_steps):
+        fsi = mb.block_case(pkg, "body_force", n_steps=n_steps, device=dev)
+        fsi.params.save_interval = fsi.time.save_interval = \
+            2 * fsi.params.time_step
+        fsi.run(verbose=False)
+        return fsi
+
+    with _InDir("block_cuda"):
+        gb, b1, t_gpu = _on_card(torch, block, "cuda", 4)
+    with _InDir("block_cpu"):
+        t0 = time.perf_counter()
+        cb = block("cpu", 4)
+        t_cpu = time.perf_counter() - t0
+    with _InDir("block_restart"):
+        _, b2, _ = _on_card(torch, block, "cuda", 2)
+        rb, b3, _ = _on_card(torch, block, "cuda", 4)
+    errs = {name: _rel(getattr(f(gb), attr), getattr(f(cb), attr))
+            for name, f, attr in (
+                ("fluid solution", lambda x: x.fluid, "present_solution"),
+                ("solid displacement", lambda x: x.solid,
+                 "current_displacement"))}
+    restart = {name: _rel(getattr(f(rb), attr), getattr(f(gb), attr))
+               for name, f, attr in (
+                   ("fluid solution", lambda x: x.fluid, "present_solution"),
+                   ("solid displacement", lambda x: x.solid,
+                    "current_displacement"))}
+    ok = (_mpi_counts(gb) == _mpi_counts(cb) and len(rb.step_log) == 2
+          and all(e <= 1e-6 for e in errs.values())
+          and all(e <= BLOCK_RESTART_TOL for e in restart.values()))
+    say(f"{label}: 2-D MPI block (body force, f64) through MPIFSI.run, 4 "
+        f"steps with a save at steps 2 and 4, CUDA vs CPU: "
+        + ", ".join(f"{k} rel err {v:.3e}" for k, v in errs.items())
+        + f" (rtol 1e-6); (Newton, retries) per step CUDA {_mpi_counts(gb)}"
+        f" CPU {_mpi_counts(cb)}; MPIFSI.run restarted on the card from the "
+        f"step-2 checkpoints, steps {[s['step'] for s in rb.step_log]}, "
+        f"against the uninterrupted card run: "
+        + ", ".join(f"{k} rel err {v:.3e}" for k, v in restart.items())
+        + f" (rtol {BLOCK_RESTART_TOL:.0e}); {t_gpu:.2f} s CUDA, "
+        f"{t_cpu:.2f} s CPU "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the MPI block save / restart failed")
+    blk = b1 + b2 + b3
+    for name_dt in sorted({k[1] for k in blk}):
+        dt = getattr(torch, name_dt)
+        gen = torch.Generator(device="cuda").manual_seed(183)
+        check_kernels(torch, label,
+                      kernel_cases(torch, gb.fluid, gb.solid, dt, gen), dt,
+                      results, only=set(blk))
+    paths.update(coarse_block=_path(b1, 4), coarse_block_to_step2=_path(b2, 2),
+                 coarse_block_restart=_path(b3, 2))
+
+    # (d) the flat shell: the plate (16 x 16) and the bar (16 x 4)
+    for case, cells in (("plate", (16, 16)), ("bar", (16, 4))):
+        def solve(dev):
+            shell = sp.shell_case(pkg, case, cells, device=dev)
+            shell.run()
+            return shell
+        gs, sl, t_gpu = _on_card(torch, solve, "cuda")
+        t0 = time.perf_counter()
+        cs = solve("cpu")
+        t_cpu = time.perf_counter() - t0
+        err = _rel(gs.get_current_solution(), cs.get_current_solution())
+        # all five local dofs per node: translations and rotations
+        rot = _rel(gs.local_solution, cs.local_solution)
+        w, ref = sp.measured(gs, case), sp.closed_form(case)
+        # the CG stops at 1e-10 ||b||; the kernel and the CPU's index_add_
+        # sum in different orders, so the last residual may cross that
+        # line one iteration apart
+        ok = (err <= 1e-10 and rot <= 1e-10
+              and abs(gs.cg_iters - cs.cg_iters) <= 1
+              and abs(w - ref) / ref < (0.04 if case == "plate" else 0.02))
+        say(f"{label}: shell {case} {cells[0]} x {cells[1]} ({gs.n_dofs} "
+            f"dofs, {gs.mesh2.n_cells} cells of 20 x 20 f64 blocks), CUDA vs"
+            f" CPU: displacement rel err {err:.3e}, local dofs with the "
+            f"rotations {rot:.3e} "
+            f"(rtol 1e-10); CG iterations CUDA {gs.cg_iters} CPU "
+            f"{cs.cg_iters} (at most 1 apart); "
+            f"{'centre deflection' if case == 'plate' else 'tip'}"
+            f" {w:.6e} against {ref:.6e} ({100 * (w - ref) / ref:+.2f} %); "
+            f"{t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+            f"{'ok' if ok else 'FAILED'}")
+        _require(label, ok, f"the shell {case}: CUDA and CPU disagree")
+        _check_shell(torch, label, gs, sl, results)
+        paths[f"coarse_shell_{case}"] = _path(sl, 1)
+    return paths
+
+
+def phase19_adaptive(torch, results, n_steps):
+    """The adaptive leaflet at full width (path A's configuration with
+    interface refinement every 2 steps and a checkpoint every 5) through
+    FSI.run, then resumed on the card from its first checkpoint; the
+    shell plate at 64 x 64 cells.  Launch counts zeroed just before each
+    and read just after."""
+    import shutil
+
+    from openifem_tpu_torch.cases import shell_plate as sp
+    from openifem_tpu_torch.cases.fsi_leaflet import ADAPTIVE
+    from openifem_tpu_torch.fe import transfer as tr
+    from openifem_tpu_torch.la import cuda_ops, dense
+    from openifem_tpu_torch.la import operators as ops
+    from openifem_tpu_torch.mesh.mesh import Mesh
+    label = "phase 19"
+    knobs = {k: v for k, v in ADAPTIVE.items() if k != "config"}
+    timers = Counter()
+
+    def timed(owner, name, key):
+        """Wrap owner.name to add its synchronised seconds to timers[key];
+        returns the undo."""
+        real = getattr(owner, name)
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            timers[key] += time.perf_counter() - t0
+            return out
+        setattr(owner, name, wrapper)
+        return lambda: setattr(owner, name, real)
+
+    def case(n):
+        fsi = _leaflet_solvers("cuda", FULL_H, (0, 2), n, ADAPTIVE["config"],
+                               **knobs)
+        return fsi, _record_tables(fsi.fluid)
+
+    undo = [timed(Mesh, "coarsen", "coarsen + refine"),
+            timed(Mesh, "refine", "coarsen + refine"),
+            timed(tr, "transfer_nodal_field", "transfer"),
+            timed(ops, "make_gather_plan", "plan builds"),
+            timed(dense, "condensed_dense", "dense blocks")]
+    saved = os.path.abspath("saved")
+    try:
+        with _InDir("adaptive"):
+            fsi, snaps = case(n_steps)
+            fl, so = fsi.fluid, fsi.solid
+            n0 = None
+            undo.append(timed(fl, "setup", "setup"))
+            undo.append(timed(fsi, "_setup_coupling", "coupling tables"))
+            refinements, steps, saves = [], [], []
+            real_refine, real_save = fsi.refine_mesh, fsi.save_checkpoint
+            real_phases, real_coupled = fsi._run_phases, \
+                fsi.run_one_coupled_step
+
+            def refine(*args, **kw):
+                before = dict(timers)
+                mesh0 = fl.mesh
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                real_refine(*args, **kw)
+                torch.cuda.synchronize()
+                split = {k: v - before.get(k, 0.0) for k, v in timers.items()
+                         if v - before.get(k, 0.0) > 0}
+                refinements.append(dict(
+                    step=fsi.time.get_timestep(),
+                    seconds=time.perf_counter() - t0, split=split,
+                    cells=(mesh0.n_cells, fl.mesh.n_cells),
+                    changed=fl.mesh is not mesh0,
+                    dofs=fl.n_dofs + so.n_dofs))
+
+            def save():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                real_save()
+                seconds = time.perf_counter() - t0
+                step = fsi.time.get_timestep()
+                files = [f"{p}-{step:06d}.checkpoint.npz"
+                         for p in ("solid", "fluid")]
+                saves.append(dict(step=step, seconds=seconds, bytes=sum(
+                    os.path.getsize(f) for f in files)))
+                if len(saves) == 1:
+                    os.makedirs(saved, exist_ok=True)
+                    for f in files:
+                        shutil.copy(f, saved)
+
+            def step_of(real):
+                def run(*args, **kw):
+                    b0, k0 = cuda_ops.plan_builds, dict(timers)
+                    out = real(*args, **kw)
+                    steps.append(dict(
+                        dofs=fl.n_dofs + so.n_dofs,
+                        plan_builds=cuda_ops.plan_builds - b0,
+                        plan_s=timers["plan builds"] - k0.get("plan builds",
+                                                              0.0),
+                        dense_s=timers["dense blocks"] - k0.get(
+                            "dense blocks", 0.0)))
+                    return out
+                return run
+            fsi.refine_mesh, fsi.save_checkpoint = refine, save
+            fsi._run_phases = step_of(real_phases)
+            fsi.run_one_coupled_step = step_of(real_coupled)
+            n0 = fl.mesh.n_cells
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_ops.reset_launches()
+            t0 = time.perf_counter()
+            fsi.run(verbose=False)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = cuda_ops.launches.copy()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        for u in undo:
+            u()
+    dofs0 = FULL_DOFS["fsi_leaflet"]
+    say(f"{label}: adaptive leaflet ({ADAPTIVE}), {n0} fluid cells and "
+        f"{dofs0} dofs before adaptation, {n_steps} steps through FSI.run "
+        f"in {total:.2f} s; peak device memory {peak / 2**20:.1f} MiB")
+    for r in refinements:
+        say(f"{label}: refinement after step {r['step']}: "
+            f"{r['seconds']:.3f} s, fluid cells {r['cells'][0]} -> "
+            f"{r['cells'][1]} ({'a new' if r['changed'] else 'the same'} "
+            f"mesh), {r['dofs']} dofs; split "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(
+                r["split"].items()))
+            + f", distances, flags and the rest "
+            f"{r['seconds'] - sum(r['split'].values()):.3f} s")
+    # after a refinement, plans are built in the next step only
+    refined_before = {r["step"] + 1 for r in refinements if r["changed"]}
+    late = []
+    for i, (s, st) in enumerate(zip(fsi.step_log, steps)):
+        k = s["krylov"]
+        if st["plan_builds"] and i > 1 and s["step"] not in refined_before:
+            late.append(s["step"])
+        say(f"{label}: step {s['step']} "
+            f"{'coupled' if s['coupled'] else 'host first step'}: "
+            f"{1e3 * s['seconds']:.1f} ms, {st['dofs']} dofs, Newton solid "
+            f"{s['solid_newton']} fluid {s['fluid_newton']}, Krylov {k}; "
+            f"plan builds {st['plan_builds']} ({1e3 * st['plan_s']:.1f} ms)"
+            f", dense condensed blocks {1e3 * st['dense_s']:.1f} ms")
+    for s in saves:
+        say(f"{label}: checkpoint at step {s['step']}: {s['bytes']} bytes "
+            f"(solid + fluid npz), saved in {s['seconds']:.3f} s")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        fl.present_solution, fl.stress_device, so.current_displacement,
+        so.current_velocity, so.current_acceleration))
+    max_dx = so.current_displacement.reshape(-1, 2)[:, 0].max().item()
+    ok = (finite and 1e-4 < max_dx < 0.5 and not late
+          and len(fsi.step_log) == n_steps and len(refinements) >= 2
+          and len(saves) >= 1 and set(fl.precond_branches) <= {("dense",
+                                                               "cg")})
+    say(f"{label}: every step converged; finite {finite}, max d_x "
+        f"{max_dx:.4e}; {len(refinements)} refinements (2 before the first "
+        f"step), {len(saves)} saves; plan builds after a step with no "
+        f"refinement before it: {late or 'none'}; launches "
+        f"{dict(launches)} {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the adaptive leaflet failed")
+    # the restart: resumed on the card from the first checkpoint
+    with _InDir("resumed"):
+        for f in os.listdir(saved):
+            shutil.copy(os.path.join(saved, f), ".")
+        again, r_snaps = case(n_steps)
+        t_load = {}
+        real_load = again.load_checkpoint
+
+        def load():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_load()
+            torch.cuda.synchronize()
+            t_load["s"] = time.perf_counter() - t0
+            return out
+        again.load_checkpoint = load
+        _, l2, t_resume = _on_card(torch, again.resume, verbose=False)
+    diff = {"fluid solution": _rel(again.fluid.present_solution,
+                                   fl.present_solution),
+            "solid displacement": _rel(again.solid.current_displacement,
+                                       so.current_displacement)}
+    ok = (again.time.get_timestep() == n_steps
+          and again.fluid.mesh.n_cells == fl.mesh.n_cells
+          and all(bool(torch.isfinite(t).all()) for t in (
+              again.fluid.present_solution,
+              again.solid.current_displacement)))
+    say(f"{label}: resumed on the card from the step-{saves[0]['step']} "
+        f"checkpoints (loaded in {t_load['s']:.3f} s) to step "
+        f"{again.time.get_timestep()} in {t_resume:.2f} s: against the "
+        f"uninterrupted run " + ", ".join(
+            f"{k} rel diff {v:.3e}" for k, v in diff.items())
+        + f" (not gated: the bench knobs' f32 solves and the card's atomics "
+        f"round differently from run to run) {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the resumed adaptive leaflet failed")
+    _check_snapshots(torch, label, snaps + r_snaps, so, launches + l2,
+                     results)
+
+    # the flat shell at 64 x 64 cells
+    from openifem_tpu_torch.cases.fsi_leaflet import port_package
+    sp_pkg = port_package()
+
+    def solve():
+        shell = sp.shell_case(sp_pkg, "plate", (64, 64), device="cuda")
+        shell.setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shell.run()
+        torch.cuda.synchronize()
+        return shell, time.perf_counter() - t0
+    (shell, solve_s), sl, total = _on_card(torch, solve)
+    w, ref = sp.measured(shell, "plate"), sp.closed_form("plate")
+    ok = abs(w - ref) / ref < 0.04 and shell.n_dofs == 21125
+    say(f"{label}: shell plate 64 x 64 ({shell.n_nodes} nodes, "
+        f"{shell.n_dofs} dofs, 4096 cells of 20 x 20 f64 blocks): "
+        f"{shell.cg_iters} Jacobi CG iterations in {1e3 * solve_s:.1f} ms "
+        f"({1e3 * solve_s / max(shell.cg_iters, 1):.3f} ms per iteration, "
+        f"one host sync each), set-up and solve {total:.2f} s; centre "
+        f"deflection {w:.6e} against Kirchhoff {ref:.6e} "
+        f"({100 * (w - ref) / ref:+.2f} %, tol 4 %) "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the 64 x 64 shell plate failed")
+    _check_shell(torch, label, shell, sl, results)
+    return {"adaptive_leaflet": _path(launches, n_steps),
+            "adaptive_leaflet_resume": _path(l2, n_steps - saves[0]["step"]),
+            "shell_plate_64": _path(sl, 1)}
+
+
 def _run_phase(n, fn, *args):
     """fn(*args), then one line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -1778,7 +2389,7 @@ def _run_phase(n, fn, *args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 18))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 20))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
     ap.add_argument("--scnsim-depth", default=",".join(map(str, (
@@ -1791,7 +2402,14 @@ def main():
     ap.add_argument("--vocal-depth", default=f"{VOCAL_WARM},{VOCAL_TIMED}",
                     help="phase 17: warm-up and timed steps after the host "
                          "first step (default: %(default)s)")
+    ap.add_argument("--amr-depth", type=int, default=AMR_STEPS,
+                    help="phase 19: steps of the adaptive leaflet (at least "
+                         "10: the flow pushes the leaflet past the gate's "
+                         "1e-4 downstream only after its first steps, which "
+                         "move it upstream; default: %(default)s)")
     args = ap.parse_args()
+    if args.amr_depth < AMR_STEPS:
+        ap.error(f"--amr-depth takes at least {AMR_STEPS} steps")
     want = {int(p) for p in args.phases.split(",") if p}
     depth = tuple(int(n) for n in args.scnsim_depth.split(","))
     if len(depth) != 3 or min(depth[1:]) < 1 or depth[0] < 0:
@@ -1810,7 +2428,8 @@ def main():
     # import also sets the package's precision policy (config.py)
     import openifem_tpu_torch  # noqa: F401
     checked, runs = {}, {}
-    # the solids write their first-step VTU output to the working directory
+    # the solids write their first-step VTU output, and phases 18 and 19
+    # their checkpoints, to the working directory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         os.chdir(work)
         _run_phase(1, phase1_build)
@@ -1855,6 +2474,11 @@ def main():
         if 17 in want:
             runs["vocal_fold"] = _run_phase(17, phase17_vocal_fold, torch,
                                            checked, vocal_depth)
+        if 18 in want:
+            runs.update(_run_phase(18, phase18_coarse_amr, torch, checked))
+        if 19 in want:
+            runs.update(_run_phase(19, phase19_adaptive, torch, checked,
+                                   args.amr_depth))
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version

@@ -38,7 +38,8 @@ Three solver configurations of the case (`CONFIGS`), built by
                     (mg_direct) over the nested hierarchy.
 With bench_precision the two bench configurations also take the bench's
 precision and tolerance knobs (BENCH_PRECISION_KNOBS); without, they run
-in float64 throughout.
+in float64 throughout.  ADAPTIVE adds interface refinement and
+checkpoints to a configuration (refine_every / save_every, in steps).
 """
 
 from __future__ import annotations
@@ -60,16 +61,21 @@ def inflow(points, component):
     return out
 
 
-def leaflet_fields(h: float = 0.05, refinements=(0, 2), n_steps: int = 10):
-    """AllParameters field values of the case (either package)."""
+def leaflet_fields(h: float = 0.05, refinements=(0, 2), n_steps: int = 10,
+                   refine_every=None, save_every=None):
+    """AllParameters field values of the case (either package).  By
+    default no output, no AMR and no checkpoints; refine_every /
+    save_every (in time steps) set the refinement and save intervals."""
     dt = 5e-3
-    never = 1e9  # output / refinement / save intervals: no I/O, no AMR
+    never = 1e9
     return dict(
         simulation_type="FSI", dimension=2,
         global_refinements=list(refinements),
         end_time=n_steps * dt, time_step=dt,
-        output_interval=never, refinement_interval=never,
-        save_interval=never,
+        output_interval=never,
+        refinement_interval=never if refine_every is None
+        else refine_every * dt,
+        save_interval=never if save_every is None else save_every * dt,
         gravity=[0.0, 0.0],
         fluid_velocity_degree=2, fluid_pressure_degree=1,
         viscosity=1e-2, fluid_rho=1.0, grad_div=1.0,
@@ -104,6 +110,13 @@ def leaflet_meshes(generators, h: float = 0.05):
 
 
 CONFIGS = ("element", "fsi_leaflet", "fsi_leaflet_r2")
+
+# the adaptive leaflet: path A's configuration ("fsi_leaflet") with the
+# interface refinement of FSI.run (fluid cells within one cell diameter of
+# the leaflet's boundary at level global_refinements[0] + 1, the rest
+# coarsened to global_refinements[0]) every 2 steps and a checkpoint every
+# 5 steps
+ADAPTIVE = dict(config="fsi_leaflet", refine_every=2, save_every=5)
 
 # the precision and tolerance knobs that BenchInsIM sets on both leaflet
 # bench cases (bench.py:502-533): f32 preconditioner, f32 Jacobian and
@@ -165,16 +178,21 @@ def port_package():
 def leaflet_case(pkg, config: str = "fsi_leaflet", h: float = 0.05,
                  refinements=(0, 2), n_steps: int = 10,
                  extra_refine: int = 2, bench_precision: bool = True,
-                 device=None):
+                 device=None, refine_every=None, save_every=None):
     """An unrun FSI of configuration `config` (one of CONFIGS), built with
     the classes of `pkg` (a namespace with AllParameters, generators,
     InsIM, HyperElasticity and FSI of either package; `port_package()`
     gives the port's).  device: the port's torch device (None: the
     default; leave None for the JAX package).  FSI.run sets it up and
-    runs n_steps steps."""
+    runs n_steps steps.  The adaptive leaflet (ADAPTIVE) sets
+    refine_every and save_every, in time steps: FSI.run then refines the
+    fluid around the leaflet twice before the first step, again every
+    refine_every steps, and writes a coordinated checkpoint to the
+    working directory every save_every steps."""
     knobs = insim_knobs(config, bench_precision)
-    p = pkg.AllParameters(**leaflet_fields(h=h, refinements=refinements,
-                                           n_steps=n_steps))
+    p = pkg.AllParameters(**leaflet_fields(
+        h=h, refinements=refinements, n_steps=n_steps,
+        refine_every=refine_every, save_every=save_every))
     kw = {} if device is None else dict(device=device)
     fluid_mesh, solid_mesh = leaflet_meshes(pkg.generators, h)
     hierarchy = None

@@ -643,9 +643,10 @@ class ControlVolumeFSI(MPIFSI):
     def run(self, verbose: bool = True):
         """reference: source/cv_fsi.cpp:160-281: the per-phase MPI loop
         (no coupled step, no restart), then the budgets and the solid
-        trace after every step; interface refinement and checkpoints at
-        their intervals raise NotImplementedError (ROADMAP.md queue 1 item
-        5)."""
+        trace after every step; interface refinement with levels
+        (gr, gr + 3) and coordinated checkpoints at their intervals
+        (:269-279; the refinement's _setup_coupling rebuilds the
+        control-volume tables on the new mesh)."""
         params = self.params
         self.solid.mesh = self.solid.mesh.refine_global(
             params.global_refinements[1])

@@ -29,6 +29,11 @@ from .interp import (check_cell_hash_capacity, interpolate_nodal,
                      make_cell_hash, plan_cell_hash)
 
 
+def _same_meshes(a, b):
+    """Whether two (fluid mesh, solid mesh) pairs are the same objects."""
+    return a is not None and all(x is y for x, y in zip(a, b))
+
+
 class FSI:
     def __init__(self, fluid, solid, params: AllParameters,
                  use_dirichlet_bc: bool = False):
@@ -114,6 +119,7 @@ class FSI:
         self._solid_hash_plan = (sdims, sspan, sK)
 
         self._kernels = _FSIKernels(self)
+        self._coupling_meshes = (fluid.mesh, solid.mesh)
 
     # ------------------------------------------------------------------
     def _solid_moved_verts(self):
@@ -259,9 +265,11 @@ class FSI:
         """Advance one (non-first) FSI step through make_coupled_step and
         update both solvers' state + IO epilogues."""
         fluid, solid = self.fluid, self.solid
-        if getattr(self, "_coupled_step_mesh", None) is not fluid.mesh:
+        self._sync_coupling()
+        if not _same_meshes(getattr(self, "_coupled_step_meshes", None),
+                            self._coupling_meshes):
             self._coupled_step = self.make_coupled_step()
-            self._coupled_step_mesh = fluid.mesh
+            self._coupled_step_meshes = self._coupling_meshes
         self._check_solid_hash_capacity(self._solid_moved_verts())
         (disp2, v2, a2, sol2, stress2, indicator, rel, f_it, s_it,
          traction) = self._coupled_step(
@@ -327,20 +335,100 @@ class FSI:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """Coordinated solid + fluid checkpoint (reference:
+        source/mpi_fsi.cpp:1221-1225)."""
+        self.solid.save_checkpoint(self.time.get_timestep())
+        self.fluid.save_checkpoint(self.time.get_timestep())
 
     def load_checkpoint(self) -> bool:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """Restore both solvers from the latest coordinated checkpoints in
+        the working directory and advance the clock to their step
+        (reference: source/mpi_fsi.cpp:1127-1134).  False when there are
+        none; a lone solid or fluid checkpoint, or unequal times, raises,
+        as the reference's unconditional AssertThrow does (a fresh start
+        would leave the loaded solver's state advanced)."""
+        solid_loaded = self.solid.load_checkpoint()
+        fluid_loaded = self.fluid.load_checkpoint()
+        if solid_loaded != fluid_loaded:
+            raise RuntimeError(
+                "Inconsistent restart files: solid checkpoint "
+                f"{'found' if solid_loaded else 'missing'} but fluid "
+                f"checkpoint {'found' if fluid_loaded else 'missing'}. "
+                "Check and remove inconsistent restart files!")
+        if not solid_loaded:
+            return False
+        if abs(self.solid.time.current() - self.fluid.time.current()) \
+                >= 1e-12:
+            raise RuntimeError(
+                "Solid and fluid restart files have different time steps. "
+                "Check and remove inconsistent restart files!")
+        while self.time.get_timestep() < self.solid.time.get_timestep():
+            self.time.increment()
+        return True
+
+    def _interface_levels(self):
+        """(min, max) levels of the interface refinement: the serial
+        coupler refines one level (reference: source/fsi.cpp:499-506)."""
+        gr = self.params.global_refinements[0]
+        return gr, gr + 1
 
     def refine_mesh(self, min_level: int, max_level: int,
                     verbose: bool = False):
-        raise NotImplementedError(
-            "FSI interface refinement is not ported yet (ROADMAP.md queue "
-            "1 item 5: AMR and checkpoints)")
+        """Refine the fluid cells within one diameter of the moved solid
+        boundary up to max_level and coarsen the rest (sibling families
+        only, down to min_level), with solution transfer (reference:
+        source/fsi.cpp:385-456).  An attached turbulence model's nu~ is
+        transferred and its tables rebuilt (reference:
+        source/mpi_fsi.cpp:1092-1117); then the coupling tables."""
+        from ..fe.transfer import transfer_nodal_field
+        fluid = self.fluid
+        self._sync_coupling()      # the solid's boundary on its own mesh
+        moved = self._solid_moved_verts().cpu().numpy()
+        bpts = moved[self._solid_bface_verts.cpu().numpy()].mean(axis=1)
+        fmesh = fluid.mesh
+        fc = fmesh.cell_centers()
+        dist = np.linalg.norm(fc[:, None, :] - bpts[None, :, :],
+                              axis=-1).min(axis=1)
+        near = dist < fmesh.cell_diameters()
+        flags = near & (fmesh.level < max_level)
+        mesh2, old_to_new = fmesh.coarsen(~near, min_level)
+        if not flags.any() and mesh2.n_cells == fmesh.n_cells:
+            return
+        old_u, old_p = fluid.u_space, fluid.p_space
+        old_solution, n_u_old = fluid.present_solution, fluid.n_u
+        rflags = np.zeros(mesh2.n_cells, dtype=bool)
+        rflags[old_to_new[flags]] = True
+        fluid.mesh = mesh2.refine(rflags)
+        fluid.setup()
+        self._enable_fluid_mg()
+        if verbose:
+            print(f"FSI refine: {fmesh.n_cells} -> "
+                  f"{fluid.mesh.n_cells} fluid cells")
+        pts_u = fluid.u_space.node_points
+        u_new = transfer_nodal_field(
+            fmesh, old_u, old_solution[:n_u_old].reshape(-1, fluid.dim),
+            pts_u)
+        p_new = transfer_nodal_field(fmesh, old_p, old_solution[n_u_old:],
+                                     fluid.p_space.node_points)
+        fluid.present_solution = fluid.nonzero_constraints.distribute(
+            torch.cat([u_new.reshape(-1), p_new]))
+        fluid.update_stress()
+        tm = getattr(fluid, "turbulence_model", None)
+        if tm is not None and hasattr(tm, "space"):
+            nu_old = tm.present_solution
+            tm.setup()
+            tm.present_solution = transfer_nodal_field(fmesh, old_u, nu_old,
+                                                       pts_u)
+            tm.update_eddy_viscosity()
+        self._setup_coupling()
+
+    def _sync_coupling(self):
+        """Rebuild the coupling tables when either mesh changed since they
+        were built (a LinearElasticity solid refines itself inside FSI
+        runs, reference: source/linear_elasticity.cpp:317)."""
+        if not _same_meshes(self._coupling_meshes,
+                            (self.fluid.mesh, self.solid.mesh)):
+            self._setup_coupling()
 
     # ------------------------------------------------------------------
     def _run_solid_step(self, first_step: bool) -> int:
@@ -356,6 +444,8 @@ class FSI:
             self.find_solid_bc()
         with self.timer.scope("Run solid solver"):
             retries = self._run_solid_step(first_step)
+        # the solid's step may have refined its mesh
+        self._sync_coupling()
         with self.timer.scope("Update indicator"):
             self.update_solid_box_and_indicator()
         with self.timer.scope("Find fluid BC"):
@@ -364,36 +454,55 @@ class FSI:
             self._run_fluid_step(zero_ext, nonzero_ext, verbose)
         return retries
 
-    def _setup_run(self):
-        """run()'s set-up: global refinement, both solvers, coupling."""
-        params = self.params
-        self.solid.mesh = self.solid.mesh.refine_global(
-            params.global_refinements[1])
-        self.solid.setup()
-        self.fluid.mesh = self.fluid.mesh.refine_global(
-            params.global_refinements[0])
-        self.fluid.setup()
+    def _setup_run(self, loaded: bool = False):
+        """run()'s set-up: the global refinement and both solvers (unless
+        `loaded` from checkpoints, which set them up), then the pressure
+        V-cycle and the coupling tables."""
+        if not loaded:
+            params = self.params
+            self.solid.mesh = self.solid.mesh.refine_global(
+                params.global_refinements[1])
+            self.solid.setup()
+            self.fluid.mesh = self.fluid.mesh.refine_global(
+                params.global_refinements[0])
+            self.fluid.setup()
         self._enable_fluid_mg()
         self._setup_coupling()
 
     def run(self, verbose: bool = True):
         """reference: source/fsi.cpp:459-516."""
-        params = self.params
         self._setup_run()
-        if params.refinement_interval < params.end_time:
-            # initial interface refinement x2 (reference: fsi.cpp:499-506)
-            gr = params.global_refinements[0]
-            self.refine_mesh(gr, gr + 1, verbose=verbose)
-            self.refine_mesh(gr, gr + 1, verbose=verbose)
+        self._initial_refinement(verbose)
         self._time_loop(verbose)
 
-    def _time_loop(self, verbose: bool, fuse: bool = True, after_step=None):
-        """The time loop of run(): the per-phase first step, then coupled
-        steps where `fuse` and _can_fuse_step allow; after each step the
-        clock, `after_step()`, interface refinement and checkpoints at
-        their intervals.  Logs each step in self.step_log (its seconds
-        include after_step)."""
-        params = self.params
+    def resume(self, verbose: bool = True):
+        """Continue a run from the latest coordinated checkpoints in the
+        working directory (run() starts fresh, as the reference's serial
+        coupler does; MPIFSI.run restarts by itself): both solvers
+        restored at the saved step and mesh, then run()'s loop with no
+        first step."""
+        if not self.load_checkpoint():
+            raise RuntimeError("no coordinated checkpoints to resume from "
+                               "in the working directory")
+        self._setup_run(loaded=True)
+        self._time_loop(verbose, first_step=False)
+
+    def _initial_refinement(self, verbose: bool):
+        """The interface refinement x2 before the first step, when the
+        refinement interval is shorter than the run (reference:
+        source/fsi.cpp:499-506)."""
+        if self.params.refinement_interval < self.params.end_time:
+            self.refine_mesh(*self._interface_levels(), verbose=verbose)
+            self.refine_mesh(*self._interface_levels(), verbose=verbose)
+
+    def _time_loop(self, verbose: bool, fuse: bool = True, after_step=None,
+                   first_step: bool = True):
+        """The time loop of run(): the per-phase first step (none after a
+        restart: first_step False), then coupled steps where `fuse` and
+        _can_fuse_step allow; after each step the clock, `after_step()`,
+        interface refinement and checkpoints at their intervals.  The
+        coupling tables follow a mesh that changed (_sync_coupling).  Logs
+        each step in self.step_log (its seconds include after_step)."""
         if verbose:
             print(f"{type(self).__name__}: fluid cells/dofs "
                   f"[{self.fluid.mesh.n_cells}, "
@@ -403,11 +512,12 @@ class FSI:
         # one entry per step: path taken, Newton, retry and Krylov counts
         # (a turbulence model's Newton and FGMRES counts), time
         self.step_log = []
-        krylov = getattr(self.fluid, "krylov_iters", {})
         tm = getattr(self.fluid, "turbulence_model", None)
-        first_step = True
         while self.time.end() - self.time.current() > 1e-12:
             t0 = time.perf_counter()
+            self._sync_coupling()
+            # a refinement's setup() replaces the fluid's counters
+            krylov = getattr(self.fluid, "krylov_iters", {})
             k0 = dict(krylov)
             sa0 = tm.krylov_iters["fgmres"] if tm is not None else 0
             coupled = fuse and not first_step and self._can_fuse_step()
@@ -434,8 +544,7 @@ class FSI:
             entry["seconds"] = time.perf_counter() - t0
             self.step_log.append(entry)
             if self.time.time_to_refine():
-                gr = params.global_refinements[0]
-                self.refine_mesh(gr, gr + 1, verbose=verbose)
+                self.refine_mesh(*self._interface_levels(), verbose=verbose)
             if self.time.time_to_save():
                 self.save_checkpoint()
 

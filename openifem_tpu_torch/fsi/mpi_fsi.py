@@ -29,14 +29,14 @@ the solid boundary vertices (find_solid_bc), the model's Dirichlet rows,
 the moving-wall distance (find_fluid_bc) and the model's Newton solve
 before the fluid's, all on the device.
 
-Not ported, and refused with NotImplementedError naming the ROADMAP.md
-item: interface refinement and coordinated checkpoints, and the restart
-that the JAX package's run() attempts first (queue 1 item 5).
+run() first restarts from the latest coordinated checkpoints in the
+working directory (a lone solid or fluid checkpoint raises), and refines
+the fluid around the solid at `Refinement interval` with levels
+(gr, gr + 3) (source/mpi_fsi.cpp:1119-1227).
 """
 
 from __future__ import annotations
 
-import glob
 from contextlib import nullcontext
 
 import numpy as np
@@ -46,13 +46,8 @@ from ..config import real_dtype
 from ..fe.fevalues import _geometry_jacobians
 from ..mesh.mesh import FACE_VERTICES
 from ..solvers.fluid.supg import SUPGFluidSolver
-from .fsi import FSI
+from .fsi import FSI, _same_meshes
 from .interp import interpolate_nodal
-
-_RESTART = ("MPIFSI.run would restart from the checkpoints {} in the working "
-            "directory, as the JAX package does; checkpoints are not ported "
-            "yet (ROADMAP.md queue 1 item 5: AMR and checkpoints)")
-
 
 class MPIFSI(FSI):
     def __init__(self, fluid, solid, params, use_dirichlet_bc: bool = False):
@@ -124,9 +119,11 @@ class MPIFSI(FSI):
 
     def run_one_coupled_step(self, verbose: bool = False):
         fluid, solid = self.fluid, self.solid
-        if getattr(self, "_coupled_step_mesh", None) is not fluid.mesh:
+        self._sync_coupling()
+        if not _same_meshes(getattr(self, "_coupled_step_meshes", None),
+                            self._coupling_meshes):
             self._coupled_step = self.make_coupled_step()
-            self._coupled_step_mesh = fluid.mesh
+            self._coupled_step_meshes = self._coupling_meshes
         self._check_solid_hash_capacity(solid.moved_vertex_coords())
         (x2, v2, sig2, a2, sol2, f_stress2, indicator, fsi_stress_nodal,
          fsi_acc_nodal, rel, f_it, rows, p_nodal,
@@ -408,17 +405,24 @@ class MPIFSI(FSI):
         return retries
 
     # ------------------------------------------------------------------
+    def _interface_levels(self):
+        """(gr, gr + 3) (reference: source/mpi_fsi.cpp:1164-1171)."""
+        gr = self.params.global_refinements[0]
+        return gr, gr + 3
+
     def run(self, verbose: bool = True):
-        """reference: source/mpi_fsi.cpp:1119-1227.  The JAX package first
-        tries to restart from the latest coordinated checkpoints in the
-        working directory; the port starts fresh, and refuses to when such
-        checkpoints exist.  Then FSI.run's loop, with the contact model in
-        the solid phase."""
-        found = sorted(glob.glob("fluid-*.checkpoint.npz") +
-                       glob.glob("solid-*.checkpoint.npz"))
-        if found:
-            raise NotImplementedError(_RESTART.format(found))
-        super().run(verbose)
+        """reference: source/mpi_fsi.cpp:1119-1227: restart from the latest
+        coordinated checkpoints when there are any (load_checkpoint applies
+        the solid's global refinement itself; a lone solid or fluid
+        checkpoint raises, as the reference's unconditional AssertThrow
+        does, :1130-1134), else the global refinement and set-up; the
+        initial interface refinement x2; then FSI.run's loop, with the
+        contact model in the solid phase and no first step after a
+        restart."""
+        loaded = self.load_checkpoint()
+        self._setup_run(loaded)
+        self._initial_refinement(verbose)
+        self._time_loop(verbose, first_step=not loaded)
 
 
 class _MPIKernels:

@@ -308,22 +308,107 @@ class FluidSolverBase:
     # ------------------------------------------------------------------
     def refine_mesh(self, min_level: int, max_level: int,
                     verbose: bool = False):
-        raise NotImplementedError(
-            "fluid AMR is not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """Kelly-driven standalone AMR with solution transfer (reference:
+        source/fluid_solver.cpp:215-265,
+        refine_and_coarsen_fixed_fraction(0.6, 0.4)).  The indicators and
+        flags are computed on the host in float64."""
+        from ...fe.kelly import (coarsen_fraction_flags, kelly_estimate,
+                                 refine_fraction_flags)
+        from ...fe.transfer import transfer_nodal_field
+        eta = kelly_estimate(self.u_space, self.present_solution,
+                             n_components=self.dim, component_offset=0)
+        flags = refine_fraction_flags(eta, 0.6)
+        flags &= self.mesh.level < max_level
+        cflags = coarsen_fraction_flags(eta, 0.4) & ~flags
+        if not flags.any() and not cflags.any():
+            return
+        old_mesh, old_u, old_p = self.mesh, self.u_space, self.p_space
+        old_solution = self.present_solution
+        n_u_old = self.n_u
+        mesh2, old_to_new = self.mesh.coarsen(cflags, min_level)
+        rflags = np.zeros(mesh2.n_cells, dtype=bool)
+        rflags[old_to_new[flags]] = True
+        self.mesh = mesh2.refine(rflags)
+        self.setup()
+        if verbose:
+            print(f"Kelly refine: {old_mesh.n_cells} -> "
+                  f"{self.mesh.n_cells} cells")
+        u_new = transfer_nodal_field(
+            old_mesh, old_u, old_solution[:n_u_old].reshape(-1, self.dim),
+            self.u_space.node_points)
+        p_new = transfer_nodal_field(old_mesh, old_p, old_solution[n_u_old:],
+                                     self.p_space.node_points)
+        self.present_solution = self.nonzero_constraints.distribute(
+            torch.cat([u_new.reshape(-1), p_new]))
+        self.update_stress()
+
+    _MESH_CKPT_FIELDS = ("vertices", "cells", "material_id", "boundary_id",
+                         "face_manifold", "cell_manifold", "level",
+                         "tfi_coarse", "tfi_rect", "family", "child_index")
 
     def save_checkpoint(self, step: Optional[int] = None,
                         prefix: str = "fluid"):
-        # the JAX package also stores an attached turbulence model's state
-        # here (nu~, wall distance, y+, accumulated rows)
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """reference: source/mpi_fluid_solver.cpp:581-636.  The mesh
+        arrays are stored with the solution, so a restart after AMR
+        rebuilds the adapted mesh; an attached turbulence model's state
+        rides along (reference: source/mpi_spalart_allmaras.cpp:569-591).
+        The keys are the JAX package's."""
+        from ...io.checkpoint import save_checkpoint
+        if step is None:
+            step = self.time.get_timestep()
+        host = lambda a: a.cpu().numpy()  # noqa: E731
+        arrays = {"present_solution": host(self.present_solution),
+                  "time_current": self.time.current()}
+        for f in self._MESH_CKPT_FIELDS:
+            arrays["mesh_" + f] = np.asarray(getattr(self.mesh, f))
+        tm = getattr(self, "turbulence_model", None)
+        if tm is not None:
+            arrays["sa_nu_tilde"] = host(tm.present_solution)
+            arrays["sa_moving_wall_distance"] = host(
+                tm.moving_wall_distance)
+            arrays["sa_y_plus"] = host(tm.y_plus)
+            arrays["sa_accum_mask"] = host(tm._accum_mask)
+        save_checkpoint(prefix, step, arrays)
 
     def load_checkpoint(self, prefix: str = "fluid") -> bool:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """reference: source/mpi_fluid_solver.cpp:638-713.  Rebuilds the
+        mesh recorded at save time (its manifold and TFI chart objects,
+        whose ids refinement keeps, come from the current mesh), or
+        applies the global refinement when the file has no mesh."""
+        from ...io.checkpoint import load_latest_checkpoint
+        from ...mesh.mesh import Mesh
+        data = load_latest_checkpoint(prefix)
+        if data is None:
+            return False
+        if "mesh_vertices" in data:
+            kw = {f: data["mesh_" + f] for f in self._MESH_CKPT_FIELDS}
+            self.mesh = Mesh(dim=self.dim, manifolds=self.mesh.manifolds,
+                             tfi=self.mesh.tfi, **kw)
+            self.setup()
+        elif not self._setup_done:
+            self.mesh = self.mesh.refine_global(
+                self.params.global_refinements[0])
+            self.setup()
+        if data["present_solution"].shape != (self.n_dofs,):
+            raise ValueError(
+                f"checkpoint '{prefix}' has {data['present_solution'].shape}"
+                f" dofs but the mesh yields {self.n_dofs}; the checkpoint "
+                "was saved on a different mesh")
+        self.present_solution = self._tensor(data["present_solution"])
+        tm = getattr(self, "turbulence_model", None)
+        if tm is not None and "sa_nu_tilde" in data:
+            if not hasattr(tm, "space"):
+                tm.setup()
+            tm.present_solution = tm._tensor(data["sa_nu_tilde"])
+            tm.moving_wall_distance = tm._tensor(
+                data["sa_moving_wall_distance"])
+            tm.y_plus = tm._tensor(data["sa_y_plus"])
+            tm._accum_mask = tm._tensor(data["sa_accum_mask"], torch.bool)
+            tm.update_eddy_viscosity()
+        while self.time.get_timestep() < data["__step__"]:
+            self.time.increment()
+        self.update_stress()
+        return True
 
     def output_results(self, step: Optional[int] = None,
                        prefix: str = "fluid"):
@@ -358,9 +443,11 @@ class FluidSolverBase:
         self._pvd.write_current_timestep(f"{prefix}-", 6)
 
     def _end_of_step_io(self, refine_levels=None):
-        """run_one_step epilogue (reference: source/mpi_insim.cpp:475-489):
-        VTU/PVD output at `time_to_output`, and - standalone runs only -
-        checkpoint at `time_to_save` and Kelly AMR at `time_to_refine`."""
+        """run_one_step epilogue shared by every fluid solver (reference:
+        source/mpi_insim.cpp:475-489, source/mpi_supg_solver.cpp:400-424):
+        VTU/PVD output at `time_to_output` (also inside FSI runs), and -
+        standalone runs only - checkpoint at `time_to_save` and Kelly AMR
+        at `time_to_refine` with the given (min, max) levels."""
         standalone = self.params.simulation_type == "Fluid"
         if standalone and self.time.time_to_save():
             self.save_checkpoint()

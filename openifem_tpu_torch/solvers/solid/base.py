@@ -174,27 +174,87 @@ class SolidSolverBase:
         self._pvd.write_current_timestep(f"{prefix}-", 6)
 
     def refine_mesh(self, min_level: int, max_level: int):
-        raise NotImplementedError(
-            "solid AMR is not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """Kelly AMR on the displacement field with transfer of the
+        previous d/v/a (reference: source/solid_solver.cpp:209-268,
+        refine_and_coarsen_fixed_fraction(0.6, 0.4)).  The indicators and
+        flags are computed on the host in float64."""
+        from ...fe.kelly import (coarsen_fraction_flags, kelly_estimate,
+                                 refine_fraction_flags)
+        from ...fe.transfer import transfer_nodal_field
+        d = self.dim
+        eta = kelly_estimate(self.space, self.current_displacement,
+                             n_components=d, component_offset=0)
+        flags = refine_fraction_flags(eta, 0.6)
+        flags &= np.asarray(self.mesh.level) < max_level
+        cflags = coarsen_fraction_flags(eta, 0.4) & ~flags
+        if not flags.any() and not cflags.any():
+            return
+        old_mesh, old_space = self.mesh, self.space
+        old_fields = [v.reshape(-1, d) for v in (
+            self.previous_displacement, self.previous_velocity,
+            self.previous_acceleration)]
+        mesh2, old_to_new = self.mesh.coarsen(cflags, min_level)
+        rflags = np.zeros(mesh2.n_cells, dtype=bool)
+        rflags[old_to_new[flags]] = True
+        self.mesh = mesh2.refine(rflags)
+        self.setup()
+        new = [self.constraints.distribute(
+            transfer_nodal_field(old_mesh, old_space, f,
+                                 self.space.node_points).reshape(-1))
+            for f in old_fields]
+        (self.previous_displacement, self.previous_velocity,
+         self.previous_acceleration) = new
+        (self.current_displacement, self.current_velocity,
+         self.current_acceleration) = new
 
     def save_checkpoint(self, step: Optional[int] = None,
                         prefix: str = "solid"):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """reference: source/mpi_shared_solid_solver.cpp:452-505."""
+        from ...io.checkpoint import save_checkpoint
+        if step is None:
+            step = self.time.get_timestep()
+        save_checkpoint(prefix, step, {
+            "displacement": self.current_displacement.cpu().numpy(),
+            "velocity": self.current_velocity.cpu().numpy(),
+            "acceleration": self.current_acceleration.cpu().numpy(),
+            "time_current": self.time.current(),
+        })
 
     def load_checkpoint(self, prefix: str = "solid") -> bool:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5: AMR "
-            "and checkpoints)")
+        """reference: source/mpi_shared_solid_solver.cpp:508-571.  Applies
+        the solid's global refinement itself when not yet set up."""
+        from ...io.checkpoint import load_latest_checkpoint
+        data = load_latest_checkpoint(prefix)
+        if data is None:
+            return False
+        if not self._setup_done:
+            self.mesh = self.mesh.refine_global(
+                self.params.global_refinements[1])
+            self.setup()
+        if data["displacement"].shape != (self.n_dofs,):
+            raise ValueError(
+                f"solid checkpoint has {data['displacement'].shape[0]} dofs"
+                f" but the mesh has {self.n_dofs}: refinement state "
+                "mismatch (was the mesh refined before load_checkpoint?)")
+        (self.current_displacement, self.current_velocity,
+         self.current_acceleration) = (
+            self._tensor(data[k]) for k in ("displacement", "velocity",
+                                            "acceleration"))
+        self.previous_displacement = self.current_displacement
+        self.previous_velocity = self.current_velocity
+        self.previous_acceleration = self.current_acceleration
+        while self.time.get_timestep() < data["__step__"]:
+            self.time.increment()
+        return True
 
     def _end_of_step_io(self, first_step: bool = False,
                         refine_levels=None, guard_refine: bool = True):
         """run_one_step epilogue (reference: source/linear_elasticity.cpp:
-        310-320): output at time_to_output (and at the first step),
-        checkpoint at time_to_save in standalone runs, Kelly AMR at
-        time_to_refine."""
+        310-320, source/mpi_shared_linear_elasticity.cpp:378-398): output
+        at time_to_output (and at the first step), checkpoint at
+        time_to_save in standalone runs, Kelly AMR at time_to_refine
+        (inside FSI runs too when not guard_refine, as the serial
+        LinearElasticity does, reference :317)."""
         standalone = self.params.simulation_type == "Solid"
         if first_step or self.time.time_to_output():
             if hasattr(self, "update_strain_and_stress"):

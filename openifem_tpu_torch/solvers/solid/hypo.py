@@ -335,6 +335,41 @@ class HypoElasticity(SolidSolverBase):
                 self.time.time_to_save():
             self.save_checkpoint()
 
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, step=None, prefix: str = "solid"):
+        """Particle-state checkpoint (x, v, sigma), the JAX package's
+        keys."""
+        from ...io.checkpoint import save_checkpoint
+        if step is None:
+            step = self.time.get_timestep()
+        save_checkpoint(prefix, step, {
+            "x": self.x.cpu().numpy(), "v": self.v.cpu().numpy(),
+            "sigma": self.sigma.cpu().numpy(),
+            "time_current": self.time.current()})
+
+    def load_checkpoint(self, prefix: str = "solid") -> bool:
+        """Restore the particle state; applies the solid's global
+        refinement itself when not yet set up."""
+        from ...io.checkpoint import load_latest_checkpoint
+        data = load_latest_checkpoint(prefix)
+        if data is None:
+            return False
+        if not self._setup_done:
+            self.mesh = self.mesh.refine_global(
+                self.params.global_refinements[1])
+            self.setup()
+        if data["x"].shape != (self.n_p, self.dim):
+            raise ValueError(
+                f"RKPM checkpoint has {data['x'].shape} particles but the "
+                f"mesh has {(self.n_p, self.dim)}: refinement state "
+                "mismatch")
+        self.x, self.v, self.sigma = (self._tensor(data[k])
+                                      for k in ("x", "v", "sigma"))
+        while self.time.get_timestep() < data["__step__"]:
+            self.time.increment()
+        self._sync()
+        return True
+
 
 class SharedHypoElasticity(SharedSolidMixin, HypoElasticity):
     """FSI-side RKPM solid (reference: include/mpi_shared_hypo_elasticity.h,

@@ -16,10 +16,11 @@ vocal fold (openifem_tpu_torch.cases.vocal_fold, 3,534 dofs, f64):
   (fluid, solid, turbulence model, shear velocities, budget history)
   loaded into a port coupler set up on the same mesh gives the JAX run's
   third step within 1e-6;
-- interface refinement and checkpoints raise NotImplementedError naming
-  ROADMAP.md queue 1 item 5.
+- interface refinement and coordinated checkpoints at their intervals:
+  the run refines (the control-volume and model tables rebuilt) or saves.
 """
 
+import glob
 import os
 
 import jax.numpy as jnp
@@ -262,20 +263,75 @@ def test_interop_round_trip(jax_run, tmp_path, monkeypatch):
     assert all(close(got[k], want[k], 1e-6) for k in want)
 
 
-@pytest.mark.parametrize("interval", ["refinement_interval",
-                                      "save_interval"])
-def test_refinement_and_checkpoint_refusals(interval, tmp_path,
-                                            monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    fsi = build(True, n_steps=2)
+def _with_interval(fsi, interval):
+    """fsi with `interval` set to one time step."""
     setattr(fsi.params, interval, fsi.params.time_step)
     fsi.time = type(fsi.time)(fsi.params.end_time, fsi.params.time_step,
                               fsi.params.output_interval,
                               fsi.params.refinement_interval,
                               fsi.params.save_interval)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 5: AMR and "
-                             "checkpoints"):
-        fsi.run(verbose=False)
-    # the first step ran before the refusal
-    assert len(fsi.cv_history) == 1
+    return fsi
+
+
+def _refine_log(fsi):
+    """Log each refinement's fluid cell count and each step's fluid
+    Newton count (any package's ControlVolumeFSI.run)."""
+    log = []
+    run_fluid, refine = fsi._run_fluid_step, fsi.refine_mesh
+
+    def fluid_step(*a, **k):
+        run_fluid(*a, **k)
+        log.append(("newton", int(fsi.fluid.newton_iters)))
+
+    def refined(*a, **k):
+        refine(*a, **k)
+        log.append(("cells", int(fsi.fluid.mesh.n_cells)))
+    fsi._run_fluid_step, fsi.refine_mesh = fluid_step, refined
+    return log
+
+
+@pytest.mark.parametrize("interval", ["refinement_interval",
+                                      "save_interval"])
+def test_refinement_and_checkpoint_refusals(interval, tmp_path,
+                                            monkeypatch):
+    """ControlVolumeFSI.run refines and saves at its intervals (it used
+    to refuse both): interface refinement after each step, with the
+    control-volume and model tables rebuilt on the new mesh, against the
+    JAX package's run (equal meshes and Newton counts, fields and every
+    cv_history key within 1e-6); or coordinated checkpoints with the
+    model's state."""
+    monkeypatch.chdir(tmp_path)
+    fsi = _with_interval(build(True, n_steps=2), interval)
+    n0 = fsi.fluid.mesh.n_cells
+    log = _refine_log(fsi)
+    fsi.run(verbose=False)
+    assert len(fsi.cv_history) == 2
+    assert all(np.isfinite(v) for h in fsi.cv_history for v in h.values())
+    if interval == "refinement_interval":
+        assert fsi.fluid.mesh.n_cells != n0
+        assert fsi._fluid_centers.shape[0] == fsi.fluid.mesh.n_cells
+        assert fsi.fluid.turbulence_model.n == fsi.fluid.u_space.n_nodes
+        (tmp_path / "jax").mkdir()
+        monkeypatch.chdir(tmp_path / "jax")
+        jf = _with_interval(build(False, n_steps=2), interval)
+        jlog = _refine_log(jf)
+        jf.run(verbose=False)
+        assert log == jlog and [k for k, _ in log] == [
+            "newton", "cells"] * 2
+        for name in ("cells", "level", "vertices"):
+            np.testing.assert_array_equal(getattr(fsi.fluid.mesh, name),
+                                          getattr(jf.fluid.mesh, name))
+        for a, b in ((fsi.fluid.present_solution, jf.fluid.present_solution),
+                     (fsi.fluid.turbulence_model.present_solution,
+                      jf.fluid.turbulence_model.present_solution),
+                     (fsi.solid.current_displacement,
+                      jf.solid.current_displacement)):
+            assert rel_err(a, b) <= 1e-6
+        for got, want in zip(fsi.cv_history, jf.cv_history):
+            assert set(got) == set(want)
+            assert all(close(got[k], want[k], 1e-6) for k in want)
+    else:
+        assert sorted(glob.glob("*.checkpoint.npz")) == [
+            "fluid-000002.checkpoint.npz", "solid-000002.checkpoint.npz"]
+        with np.load("fluid-000002.checkpoint.npz") as data:
+            assert "sa_nu_tilde" in data.files

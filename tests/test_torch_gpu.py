@@ -10,6 +10,7 @@ absent (--noconftest skips tests/conftest.py, which sets JAX up):
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import os
 from collections import Counter
 
 import numpy as np
@@ -748,3 +749,74 @@ def test_vocal_fold_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     for gh, ch in zip(g.cv_history, c.cv_history):
         assert all(abs(gh[k] - ch[k]) <= max(1e-6 * abs(ch[k]), 1e-12)
                    for k in ch)
+
+
+@DTYPES
+def test_kernel_at_shell_shape(cuda, dtype):
+    """The scalar layout at the flat shell's 20 x 20 blocks (5 dofs x 4
+    nodes) over its own table (256 cells), against the plain version;
+    repeats bitwise equal."""
+    from openifem_tpu_torch.cases import shell_plate as sp
+    shell = sp.shell_case(port_package(), "plate", (16, 16), device=cuda)
+    shell.setup()
+    g = torch.Generator(device=cuda).manual_seed(29)
+    A = torch.randn(256, 20, 20, generator=g, device=cuda, dtype=dtype)
+    x = torch.randn(shell.n_dofs, generator=g, device=cuda, dtype=dtype)
+    cuda_ops.reset_launches()
+    y = ops.element_matvec(A, shell.cell_dofs, shell.n_dofs, x)
+    assert cuda_ops.launches[("element_matvec", str(dtype)[6:], 256, 20,
+                              20)] == 1
+    ref = ops.element_matvec_plain(A, shell.cell_dofs, shell.n_dofs, x)
+    assert rel_err(y, ref) <= TOL[dtype]
+    assert all(torch.equal(ops.element_matvec(A, shell.cell_dofs,
+                                              shell.n_dofs, x), y)
+               for _ in range(3))
+
+
+def test_refine_and_restart_on_the_card(cuda, tmp_path, monkeypatch):
+    """The coarse leaflet through FSI.run with interface refinement and a
+    checkpoint every 2 steps: 4 steps on the card against the CPU (equal
+    meshes and Newton counts, 1e-6), then a restart on the card from the
+    step-2 checkpoints to step 4 against the uninterrupted card run
+    (1e-10: the card's index_add_ rounds differently from run to run)."""
+    import glob
+    import shutil
+    monkeypatch.chdir(tmp_path)
+    pkg = port_package()
+
+    def run(dev, stop=4, workdir="."):
+        os.makedirs(workdir, exist_ok=True)
+        here = os.getcwd()
+        os.chdir(workdir)
+        try:
+            fsi = leaflet_case(pkg, "element", h=0.1, refinements=(0, 1),
+                               n_steps=4, device=dev, refine_every=2,
+                               save_every=2)
+            # interrupted after step `stop`, its parameters unchanged
+            fsi.time.time_end = stop * fsi.params.time_step
+            fsi.run(verbose=False)
+        finally:
+            os.chdir(here)
+        return fsi
+
+    g, c = run(cuda, workdir="gpu"), run("cpu", workdir="cpu")
+    assert np.array_equal(g.fluid.mesh.cells, c.fluid.mesh.cells)
+    assert [(s["solid_newton"], s["fluid_newton"]) for s in g.step_log] == \
+        [(s["solid_newton"], s["fluid_newton"]) for s in c.step_log]
+    assert rel_err(g.fluid.present_solution.cpu(),
+                   c.fluid.present_solution) <= 1e-6
+    # the restart: the step-2 checkpoints of a 2-step card run
+    run(cuda, stop=2, workdir="part")
+    os.makedirs("restart")
+    for f in glob.glob("part/*.checkpoint.npz"):
+        shutil.copy(f, "restart")
+    os.chdir("restart")
+    r = leaflet_case(pkg, "element", h=0.1, refinements=(0, 1), n_steps=4,
+                     device=cuda, refine_every=2, save_every=2)
+    r.resume(verbose=False)
+    os.chdir(tmp_path)
+    assert r.time.get_timestep() == 4
+    assert rel_err(r.fluid.present_solution.cpu(),
+                   g.fluid.present_solution.cpu()) <= 1e-10
+    assert rel_err(r.solid.current_displacement.cpu(),
+                   g.solid.current_displacement.cpu()) <= 1e-10

@@ -31,7 +31,9 @@ def test_port_never_imports_jax():
         "          'solvers.solid.shared', 'solvers.solid.hypo',\n"
         "          'cases.fsi_wall_3d', 'cases.mpi_block',\n"
         "          'solvers.turbulence.spalart_allmaras', 'fsi.cv_fsi',\n"
-        "          'cases.vocal_fold'):\n"
+        "          'cases.vocal_fold', 'io.checkpoint', 'fe.kelly',\n"
+        "          'fe.transfer', 'solvers.solid.shell',\n"
+        "          'cases.shell_plate'):\n"
         "    assert 'openifem_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     r = _run(code)

@@ -12,10 +12,10 @@ package, on configurations built in code for both
   every step), and SharedHyperElasticity with use_dirichlet_bc=True:
   fluid solution, fluid nodal stress and solid displacement within 1e-6,
   equal Newton counts per step and equal contact retry counts;
-- what the port does not carry raises NotImplementedError naming its
-  ROADMAP.md item: the restart from checkpoints in the working directory
-  and interface refinement (the turbulence hooks are ported:
-  test_torch_cv_fsi.py runs them).
+- the restart from checkpoints in the working directory (a lone fluid
+  checkpoint raises) and interface refinement during the run
+  (test_torch_checkpoint.py holds them against uninterrupted runs; the
+  turbulence hooks: test_torch_cv_fsi.py).
 """
 
 import glob
@@ -124,16 +124,23 @@ def test_run_three_steps_match_jax(config):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """The restart branch and interface refinement raise
-    NotImplementedError naming their ROADMAP.md items."""
+    """What used to be refused now runs: a lone fluid checkpoint in the
+    working directory makes the restart raise (a partial pair), and
+    interface refinement runs (test_torch_checkpoint.py holds both
+    against the uninterrupted runs)."""
     monkeypatch.chdir(tmp_path)
-    np.savez(tmp_path / "fluid-000002.checkpoint.npz", x=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    saved = build(True, "body_force")
+    saved.time.save_interval = saved.params.time_step
+    saved.run(verbose=False)
+    for f in glob.glob("solid-*.checkpoint.npz"):
+        (tmp_path / f).unlink()
+    with pytest.raises(RuntimeError, match="Inconsistent restart files"):
         build(True, "body_force").run(verbose=False)
     for f in glob.glob("*.checkpoint.npz"):
         (tmp_path / f).unlink()
     fsi = build(True, "body_force")
     fsi.params.refinement_interval = fsi.params.time_step
-    with pytest.raises(NotImplementedError,
-                       match="queue 1 item 5: AMR and checkpoints"):
-        fsi.run(verbose=False)
+    fsi.time.refinement_interval = fsi.params.time_step
+    fsi.run(verbose=False)
+    assert fsi.fluid.mesh.n_cells > 200
+    assert len(fsi.step_log) == 3

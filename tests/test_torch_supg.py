@@ -200,12 +200,15 @@ def test_neumann_rhs_and_tables_match(scnsim_pair):
                                       np.asarray(getattr(jfl, name)), name)
 
 
-def test_turbulence_raises_and_names_the_roadmap(scnsim_pair):
+def test_turbulence_raises_and_names_the_roadmap(scnsim_pair, tmp_path,
+                                                 monkeypatch):
     """The stepper takes a Spalart-Allmaras model (its signature gains
-    nu~ and the SA residual); with a model attached, what still raises is
-    the checkpoint of the fluid and model state, naming ROADMAP.md queue 1
-    item 5 (the hooks themselves: test_torch_turbulence.py)."""
+    nu~ and the SA residual); with a model attached, the fluid's
+    checkpoint carries the model's state under the JAX package's keys (it
+    used to raise naming ROADMAP.md queue 1 item 5; the hooks themselves:
+    test_torch_turbulence.py, the restart: test_torch_checkpoint.py)."""
     from openifem_tpu_torch.solvers.turbulence import SpalartAllmaras
+    monkeypatch.chdir(tmp_path)
     _, pfl, _ = scnsim_pair
     model = SpalartAllmaras(pfl)
     try:
@@ -214,9 +217,11 @@ def test_turbulence_raises_and_names_the_roadmap(scnsim_pair):
         assert list(inspect.signature(stepper).parameters) == [
             "present", "stress_nodal", "nu", "n_steps", "start"]
         pfl.turbulence_model = model
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 5"):
-            pfl.save_checkpoint()
+        pfl.save_checkpoint(step=7)
+        with np.load("fluid-000007.checkpoint.npz") as data:
+            np.testing.assert_array_equal(data["sa_nu_tilde"],
+                                          np_(model.present_solution))
+            assert data["present_solution"].shape == (pfl.n_dofs,)
     finally:
         pfl.__dict__.pop("turbulence_model", None)
         pfl.__dict__.pop("eddy_viscosity_nodal", None)

@@ -15,8 +15,8 @@ refined channel of torch_parity.py (hanging nodes) with SCnsIM:
 - 3 steps of SCnsIM + SA through run() within 1e-6 with equal fluid and
   SA Newton counts per step; run_on_device (the SA step fused into the
   stepper) against the host run() within 1e-6;
-- the factory's refusal of an unknown model, and the checkpoint refusal
-  with a model attached naming its ROADMAP.md item.
+- the factory's refusal of an unknown model, and the checkpoint of a
+  fluid with a model attached restoring the model's state.
 """
 
 import jax.numpy as jnp
@@ -215,9 +215,19 @@ def test_run_three_steps_and_stepper_match():
     assert rel_err(dfl.stress_device, pfl.stress_device) <= 1e-6
 
 
-def test_refusals():
+def test_refusals(tmp_path, monkeypatch):
+    """The factory refuses an unknown model; the checkpoint of a fluid
+    with a model attached, which used to be refused, restores the
+    model's state."""
+    monkeypatch.chdir(tmp_path)
     fl = sa_solver(True)
     with pytest.raises(ValueError, match="Unknown turbulence model"):
         make_turbulence_model("k-epsilon", fl)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        fl.save_checkpoint()
+    fl.save_checkpoint()
+    fresh = sa_solver(True)
+    assert fresh.load_checkpoint()
+    for name in ("present_solution", "moving_wall_distance", "y_plus",
+                 "_accum_mask", "eddy_viscosity_nodal"):
+        np.testing.assert_array_equal(
+            np_(getattr(fresh.turbulence_model, name)),
+            np_(getattr(fl.turbulence_model, name)))

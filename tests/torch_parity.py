@@ -29,6 +29,7 @@ from openifem_tpu.solvers.turbulence import \
     make_turbulence_model as jax_make_turbulence_model
 from openifem_tpu.solvers import solid as jax_solid
 from openifem_tpu_torch import interop
+from openifem_tpu_torch.cases import fsi_disc
 from openifem_tpu_torch.cases.fsi_leaflet import leaflet_case, port_package
 
 # the tests run several workers at once; one thread each is as fast at
@@ -306,3 +307,54 @@ def jax_precond_pieces(precond):
     """The ingredients of a JAX SUPG preconditioner, read out of its
     closures: apply_Avp, apply_Apv, Pvv_inverse, Tpp, tpp_M."""
     return closure_vars(closure_vars(precond.stats)["_apply"])
+
+
+# -- AMR and checkpoints (test_torch_amr.py, test_torch_checkpoint.py) -----
+
+def cavity(port, set_up=True, **kw):
+    """The lid-driven cavity's InsIM (cases/fsi_disc.py) in either package
+    (the port's on the CPU), set up at its global refinement unless
+    set_up is False."""
+    pkg = PORT if port else JAX
+    p = pkg.AllParameters(**fsi_disc.cavity_fields(**kw))
+    fl = pkg.InsIM(pkg.generators.hyper_cube(0.0, 1.0, dim=2), p,
+                   **(dict(device="cpu") if port else {}))
+    if set_up:
+        fl.mesh = fl.mesh.refine_global(p.global_refinements[0])
+        fl.setup()
+    return fl
+
+
+def disc_fsi(port, n_steps=3, refine_every=2, save_every=None,
+             solid="HyperElasticity"):
+    """The disc in the cavity (cases/fsi_disc.py) as an unrun FSI of
+    either package (the port's on the CPU)."""
+    return fsi_disc.disc_case(PORT if port else JAX, n_steps, refine_every,
+                              save_every, solid,
+                              device="cpu" if port else None)
+
+
+def ordered_face_values(face_values):
+    """The JAX package's face_values with its arrays in the order of the
+    face list it was given (it groups them by local face number; the
+    JAX kelly_estimate reads them in list order)."""
+    import dataclasses
+
+    def wrapped(space, n_q1d, face_list=None):
+        fv = face_values(space, n_q1d, face_list)
+        if face_list is None or fv is None:
+            return fv
+        back = np.argsort(np.argsort([f for _, f in face_list],
+                                     kind="stable"))
+        return dataclasses.replace(fv, **{
+            f.name: getattr(fv, f.name)[back]
+            for f in dataclasses.fields(fv)})
+    return wrapped
+
+
+def fix_jax_kelly_order(monkeypatch):
+    """Make the JAX package's kelly_estimate pair each face with its own
+    neighbour (ordered_face_values), as the port's does."""
+    import openifem_tpu.fe.kelly as jax_kelly
+    monkeypatch.setattr(jax_kelly, "face_values",
+                        ordered_face_values(jax_kelly.face_values))
