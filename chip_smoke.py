@@ -18,7 +18,7 @@ and 1 always run):
      over the card's peak) and the time of a cuSPARSE CSR product of the
      same assembled blocks (timed only; the port never calls it);
   3. the coarse leaflet (h = 0.1, refinements [0, 1]) on the element-
-     matvec preconditioner branch for 3 steps on CUDA and on the CPU:
+     matvec preconditioner branch for 2 steps on CUDA and on the CPU:
      fluid solution and solid displacement within rtol 1e-6, equal Newton
      counts;
   4. that branch at the reference size (17,249 dofs) for 4 steps on CUDA
@@ -32,10 +32,8 @@ and 1 always run):
      preconditioner, bf16 A block, f32 Jacobian), 17,249 dofs, 10 steps:
      finite, 1e-4 < max d_x < 0.5, the dense branch taken, the Taylor-Hood
      layout launched in f32 and no element layout in the preconditioner;
-     then the same run again, to show whether its Newton and Krylov
-     counts repeat;
   7. path B, fsi_leaflet_r2 with the bench knobs (stencil patch layout,
-     one pressure V-cycle as Sm^-1), 232,997 dofs, 4 steps: the same
+     one pressure V-cycle as Sm^-1), 232,997 dofs, 3 steps: the same
      state checks, the patch-layout branch and no Schur CG iterations,
      Taylor-Hood, p->u and scalar layouts launched; then each of these
      layouts against its plain version as in phase 2, in f32, at path B's
@@ -56,10 +54,10 @@ and 1 always run):
      element_matvec_rect launched on its path.
  11. the stabilised fluid family, coarse, CUDA vs CPU (rtol 1e-6, equal
      Newton or sweep counts, f64): SCnsIM on the cylinder at refine 1
-     (1,284 dofs) for 3 steps on the coupled-stencil branch and 1 step
+     (1,284 dofs) for 2 steps on the coupled-stencil branch and 1 step
      (5 Newton iterations) on the element, dense and hybrid (stencil outer
-     apply, dense Tpp) branches; SUPGInsIM and SerialSCnsIM there for 2
-     steps; SCnsEX on the acoustic duct refined once (255 dofs), 6 steps
+     apply, dense Tpp) branches; SUPGInsIM and SerialSCnsIM there for 1
+     step; SCnsEX on the acoustic duct refined once (255 dofs), 6 steps
      through run() and through run_on_device();
  12. SCnsIM on the cylinder as the JAX bench runs it (18,384 dofs, f32 Tpp
      preconditioner, Galerkin V-cycle on the B2pp blocks): host first
@@ -69,16 +67,16 @@ and 1 always run):
      with coupled_stencil = False for its timed steps, so the
      Taylor-Hood, p->u, u->p and scalar layouts carry a SUPG step at full
      size: every timed step converged, finite fields, the branch taken;
- 13. SCnsEX on the acoustic duct (3,315 dofs) for 200 steps through
+ 13. SCnsEX on the acoustic duct (3,315 dofs) for 100 steps through
      run_on_device, then the duct refined twice more (16,384 cells, 50,115
-     dofs, the time step cut by 4) for 200 steps: converged sweeps, finite
+     dofs, the time step cut by 4) for 100 steps: converged sweeps, finite
      fields, 0 < vmax < 7, element_matvec launched at 8 x 8 and 4 x 4.
  14. the MPI-semantics coupler, coarse, CUDA vs CPU (f64, rtol 1e-6, equal
      Newton and contact-retry counts per step): the 2-D block
      (cases/mpi_block.py) with SharedLinearElasticity in body-force mode,
      the same with the contact model, and SharedHyperElasticity with the
-     Dirichlet coupling, 3 steps each; the fsi-wall-3D case at the
-     truncated size (3,020 + 324 dofs), 3 steps; then each _MPIKernels
+     Dirichlet coupling, 2 steps each; the fsi-wall-3D case at the
+     truncated size (3,020 + 324 dofs), 2 steps; then each _MPIKernels
      function and one SharedHypoElasticity RK4 step on the CPU run's
      state (indicator and Dirichlet mask equal, the rest to 1e-12);
  15. fsi-wall-3D at full resolution (45,207 dofs) with the bench knobs
@@ -92,12 +90,12 @@ and 1 always run):
  16. the vocal fold (cases/vocal_fold.py: SCnsIM with a Spalart-Allmaras
      eddy viscosity, a SharedLinearElasticity fold, the MPI coupler's wall
      functions and contact, per-step control-volume budgets), coarse
-     (3,534 dofs), 3 steps through ControlVolumeFSI.run on CUDA and on the
+     (3,534 dofs), 2 steps through ControlVolumeFSI.run on CUDA and on the
      CPU (f64): fluid, nu~, solid and shear velocities within rtol 1e-6,
      every cv_history key within 1e-6 (1e-12 absolute near 0), equal
      fluid Newton, SA Newton and contact-retry counts; then the channel
      without the fold, SCnsIM + SA through run_on_device against run() on
-     the card, 3 steps, within 1e-6;
+     the card, 2 steps, within 1e-6;
  17. the vocal fold at full size (global refinements (2, 1), 52,470
      dofs) with fsi-wall-3D's bench knobs through ControlVolumeFSI.run:
      the host first step, warm-up and timed steps (--vocal-depth
@@ -116,7 +114,7 @@ and 1 always run):
      run (1e-10); the disc in the cavity (cases/fsi_disc.py), whose
      interface refinement changes its mesh, the same way (4 steps, a save
      every 2, resumed from step 2); the cylinder at refine 1 through
-     InsIM.run with Kelly AMR (levels 1..3) after every step, 3 steps
+     InsIM.run with Kelly AMR (levels 1..3) after every step, 2 steps
      (equal meshes and Newton counts, 1e-6); the 2-D MPI block (body
      force) through MPIFSI.run saved at step 2 and restarted to step 4
      (1e-6 against the CPU, 2e-10 against the uninterrupted card run);
@@ -135,7 +133,30 @@ and 1 always run):
      checkpoints (load seconds, difference to the uninterrupted run
      printed); the shell plate at 64 x 64 cells (21,125 dofs): CG
      iterations and solve ms, within 4 % of Kirchhoff.
-Phases 8-19 then hold every kernel shape they launched against its plain
+ 20. the sharded paths (parallel/shard.py), coarse, f64:
+     entry.dryrun_multichip with one rank (NCCL; the JAX dry run's 5-step
+     windows) and with 4 ranks sharing the card (gloo, 2-step windows;
+     the route of each collective printed): the
+     element-sharded Newton, the padded InsIM Newton (n_u, n_p not
+     multiples of 4), the sharded stepper, the padded SCnsIM Newton, the
+     FSI and MPIFSI coupled windows, the plane-sharded stencil A-solve and
+     the dof-sharded solid CG, each against the unsharded card run with
+     the dry run's tolerances, the one-rank results also against the CPU
+     (1e-6, equal Newton and Krylov counts);
+ 21. the sharded paths at full width: (a) make_sharded_stepper at world
+     size 1 on the cavity at refine 6 (37,507 dofs), a
+     2-step window against make_on_device_stepper's (1e-5 of the scale,
+     converged, equal Newton counts; ms per step, all-reduces and bytes
+     per step, host syncs, peak memory); (b) the plane-sharded stencil
+     A-solve at refine 7 (132,098 velocity dofs) with 4 ranks sharing the
+     card and at world size 1, against the replicated stencil FGMRES
+     (1e-8, iterations within 2; ms per solve, halo bytes per matvec);
+     (c) sharded_supg_newton at world size 1 on SCnsIM's cylinder r3
+     (18,384 dofs) against the unsharded element branch (res_norm 1e-10,
+     du 1e-5); (d) sharded_element_cg on 4 ranks on the 64 x 64 shell
+     plate (21,125 dofs) against the unsharded Jacobi CG (1e-10, CG counts
+     at most 1 apart).
+Phases 8-21 then hold every kernel shape they launched against its plain
 version as phase 2 does, at the path's own tables.  Phase 2 also checks
 the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p 8 x 24) in
 f32 and f64 on a 12^3 box.
@@ -149,7 +170,7 @@ if a plan is built after the configuration's first step; phases 12 and
 count their launches per (layout, dtype, number of cells, block rows,
 block columns); the script fails if a path launched a shape that no phase
 checked.  Then a JSON line with one entry per such shape (launches summed
-over the paths of phases 4 and 6-19, and per step of each path; error and
+over the paths of phases 4 and 6-21, and per step of each path; error and
 times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
@@ -212,7 +233,7 @@ SCNSIM_DOFS = 18384
 # minute (about 10,000 Tpp GMRES iterations), so the default is the least
 # that drives both branches; --scnsim-depth 2,4,2 is the JAX bench's depth
 SCNSIM_WARM, SCNSIM_TIMED, SCNSIM_ELEMENT_TIMED = 0, 1, 1
-DUCT_STEPS = 200
+DUCT_STEPS = 100
 DUCT_RUNS = {"duct": dict(extra_refine=0, dofs=3315, cells=1024),
              "duct_fine": dict(extra_refine=2, dofs=50115, cells=16384)}
 # fsi-wall-3D: dofs at full resolution; coupled steps after the host first
@@ -231,6 +252,21 @@ AMR_STEPS = 10
 # and repeated runs of the block differed from a first run by 1.1e-11 to
 # 7.9e-11 on an H100 80GB HBM3 at 700 W
 BLOCK_RESTART_TOL = 2e-10
+# depth of earlier phases, cut to keep the script inside its time limit
+# once phases 20-21 came (PERF.md): steps of the coarse CUDA-vs-CPU
+# leaflets (phases 3 and 5; 3 before), of path B (phase 7; 4 before) and of
+# the Kelly cylinder (phase 18; 3 before)
+COARSE_LEAFLET_STEPS = 2
+PATH_B_STEPS = 3
+KELLY_STEPS = 2
+# ... and of the coarse MPI-coupler and vocal-fold runs (phases 14 and 16;
+# 3 before)
+COARSE_MPI_STEPS = COARSE_VOCAL_STEPS = 2
+# phase 20: window steps of the dry run with 4 ranks sharing the card
+# (the one-rank run takes the JAX dry run's 5); phase 21 (a): the cavity's
+# refinements (6: 64 x 64 cells, 37,507 dofs)
+DRYRUN4_STEPS = 2
+CAVITY_REFINE = 6
 
 
 def say(msg):
@@ -595,16 +631,17 @@ def _cuda_vs_cpu(label, h, refinements, n_steps, config, **kw):
 
 
 def phase3_coarse(torch):
-    _cuda_vs_cpu("phase 3: coarse leaflet, element branch,", 0.1, (0, 1), 3,
-                 "element")
+    _cuda_vs_cpu("phase 3: coarse leaflet, element branch,", 0.1, (0, 1),
+                 COARSE_LEAFLET_STEPS, "element")
 
 
 def phase5_coarse_bench(torch):
     _cuda_vs_cpu("phase 5: coarse leaflet, dense preconditioner (f64),",
-                 0.1, (0, 1), 3, "fsi_leaflet", bench_precision=False)
-    _cuda_vs_cpu("phase 5: coarse r2-style leaflet, stencil + V-cycle "
-                 "(f64),", 0.1, (0, 1), 3, "fsi_leaflet_r2", extra_refine=1,
+                 0.1, (0, 1), COARSE_LEAFLET_STEPS, "fsi_leaflet",
                  bench_precision=False)
+    _cuda_vs_cpu("phase 5: coarse r2-style leaflet, stencil + V-cycle "
+                 "(f64),", 0.1, (0, 1), COARSE_LEAFLET_STEPS,
+                 "fsi_leaflet_r2", extra_refine=1, bench_precision=False)
 
 
 def _mark_coupled_steps(fsi):
@@ -707,11 +744,6 @@ def phase4_full(torch):
     return launches, per_step
 
 
-def _step_counts(fsi):
-    return [(s["solid_newton"], s["fluid_newton"], s["krylov"])
-            for s in fsi.step_log]
-
-
 def phase6_path_a(torch):
     label = "phase 6"
     fsi, launches, per_step = _full_run(torch, label, "fsi_leaflet", 10)
@@ -729,13 +761,6 @@ def phase6_path_a(torch):
              f"preconditioner: {used}")
     say(f"{label}: dense branch taken, Taylor-Hood f32 launched, no element "
         "layout in the preconditioner ok")
-    again, _, _ = _full_run(torch, label + " (again)", "fsi_leaflet", 10)
-    first, second = _step_counts(fsi), _step_counts(again)
-    diverged = [i for i, (a, b) in enumerate(zip(first, second)) if a != b]
-    say(f"{label}: a second run repeats the Newton and Krylov counts of the "
-        f"first: {not diverged}" + (
-            f" (first differing step {diverged[0] + 1}: {first[diverged[0]]}"
-            f" then {second[diverged[0]]})" if diverged else ""))
     return launches, per_step
 
 
@@ -744,8 +769,8 @@ def phase7_path_b(torch, results):
     version at the shapes it launched: the r2 fluid's tables and the
     pressure V-cycle's levels, in the f32 of the bench knobs."""
     label = "phase 7"
-    fsi, launches, per_step = _full_run(torch, label, "fsi_leaflet_r2", 4,
-                                        extra_refine=2)
+    fsi, launches, per_step = _full_run(torch, label, "fsi_leaflet_r2",
+                                        PATH_B_STEPS, extra_refine=2)
     fl = fsi.fluid
     _require(label, set(fl.precond_branches) == {("stencil", "vcycle")},
              f"branch {dict(fl.precond_branches)}")
@@ -1110,7 +1135,7 @@ def phase11_coarse_supg(torch, results):
             return fl, newton
         return run
 
-    runs = [("SCnsIM coupled stencil", 3, supg("SCnsIM", 3),
+    runs = [("SCnsIM coupled stencil", 2, supg("SCnsIM", 2),
              ("stencil", "stencil", "galerkin")),
             ("SCnsIM element", 1, supg("SCnsIM", 1, coupled_stencil=False),
              ("element", "nodeblock", "galerkin")),
@@ -1120,9 +1145,9 @@ def phase11_coarse_supg(torch, results):
             ("SCnsIM hybrid", 1, supg("SCnsIM", 1, dense_precond=True,
                                       stencil_outer_only=True),
              ("stencil", "dense", "galerkin")),
-            ("SUPGInsIM", 2, supg("SUPGInsIM", 2),
+            ("SUPGInsIM", 1, supg("SUPGInsIM", 1),
              ("stencil", "stencil", "galerkin")),
-            ("SerialSCnsIM", 2, supg("SerialSCnsIM", 2),
+            ("SerialSCnsIM", 1, supg("SerialSCnsIM", 1),
              ("stencil", "stencil", "galerkin"))]
     for what, n_steps, run, branch in runs:
         cuda_ops.reset_launches()
@@ -1407,13 +1432,15 @@ def phase14_coarse_mpi(torch, results):
 
     def block(config):
         def run(dev):
-            fsi = mb.block_case(pkg, config, device=dev)
+            fsi = mb.block_case(pkg, config, n_steps=COARSE_MPI_STEPS,
+                                device=dev)
             fsi.run(verbose=False)
             return fsi
         return run
 
     def wall3d(dev):
-        fsi = fw.wall3d_case(pkg, reps=fw.TRUNCATED, n_steps=3,
+        fsi = fw.wall3d_case(pkg, reps=fw.TRUNCATED,
+                             n_steps=COARSE_MPI_STEPS,
                              bench_precision=False, device=dev)
         fsi.run(verbose=False)
         return fsi
@@ -1433,12 +1460,13 @@ def phase14_coarse_mpi(torch, results):
                     ("solid displacement", False, "current_displacement"))}
         same = _mpi_counts(g) == _mpi_counts(c)
         ok = (same and all(e <= 1e-6 for e in errs.values())
-              and len(g.step_log) == 3
+              and len(g.step_log) == COARSE_MPI_STEPS
               and (what != "block contact"
                    or min(r for _, r in _mpi_counts(g)) >= 1)
               and torch.equal(g.fluid.indicator.cpu(), c.fluid.indicator))
         say(f"{label}: {what} (f64), {g.fluid.n_dofs} + {g.solid.n_dofs} "
-            f"dofs, 3 steps (coupled {[s['coupled'] for s in g.step_log]})"
+            f"dofs, {COARSE_MPI_STEPS} steps (coupled "
+            f"{[s['coupled'] for s in g.step_log]})"
             f", CUDA vs CPU: " + ", ".join(f"{k} rel err {v:.3e}"
                                            for k, v in errs.items())
             + f" (rtol 1e-6); (Newton, retries) per step CUDA "
@@ -1454,7 +1482,8 @@ def phase14_coarse_mpi(torch, results):
             check_kernels(torch, label,
                           kernel_cases(torch, g.fluid, fe_solid, dt, gen),
                           dt, results, only=set(launches))
-        paths[f"coarse_mpi_{_slug(what)}"] = _path(launches, 3)
+        paths[f"coarse_mpi_{_slug(what)}"] = _path(launches,
+                                                   COARSE_MPI_STEPS)
 
     # the coupler's kernels and one RK4 step on the CPU run's state
     so, fl = c.solid, c.fluid
@@ -1630,7 +1659,7 @@ def phase16_coarse_vocal_fold(torch, results):
     pkg = vf.port_package()
 
     def run(dev):
-        fsi = vf.vocal_fold_case(pkg, 3, device=dev)
+        fsi = vf.vocal_fold_case(pkg, COARSE_VOCAL_STEPS, device=dev)
         fsi.run(verbose=False)
         return fsi
 
@@ -1648,13 +1677,15 @@ def phase16_coarse_vocal_fold(torch, results):
                                      c.shear_velocities)}
     bad = [_cv_close(a, b) for a, b in zip(g.cv_history, c.cv_history)]
     n_dofs = g.fluid.n_dofs + gt.n + g.solid.n_dofs
-    ok = (_vocal_counts(g) == _vocal_counts(c) and len(g.step_log) == 3
+    ok = (_vocal_counts(g) == _vocal_counts(c)
+          and len(g.step_log) == COARSE_VOCAL_STEPS
           and all(e <= 1e-6 for e in errs.values()) and not any(bad)
-          and len(g.cv_history) == len(c.cv_history) == 3
+          and len(g.cv_history) == len(c.cv_history) == COARSE_VOCAL_STEPS
           and n_dofs == vf.DOFS[vf.COARSE]
           and torch.equal(g.fluid.indicator.cpu(), c.fluid.indicator))
     say(f"{label}: coarse vocal fold (f64), {g.fluid.n_dofs} + {gt.n} + "
-        f"{g.solid.n_dofs} = {n_dofs} dofs, 3 steps, CUDA vs CPU: "
+        f"{g.solid.n_dofs} = {n_dofs} dofs, {COARSE_VOCAL_STEPS} steps, CUDA "
+        f"vs CPU: "
         + ", ".join(f"{k} rel err {v:.3e}" for k, v in errs.items())
         + f" (rtol 1e-6); {len(g.cv_history[-1])} cv_history keys per "
         f"step, beyond 1e-6: {bad}; (Newton, SA Newton, retries) per step "
@@ -1664,12 +1695,12 @@ def phase16_coarse_vocal_fold(torch, results):
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "coarse vocal fold: CUDA and CPU runs disagree")
     _check_vocal_fold_launched(torch, label, g, launches, results)
-    paths = {"coarse_vocal_fold": _path(launches, 3)}
+    paths = {"coarse_vocal_fold": _path(launches, COARSE_VOCAL_STEPS)}
 
     # the standalone fluid with the model: the stepper against run()
     runs = {}
     for entry in ("run", "run_on_device"):
-        fl = vf.standalone_fluid(pkg, 3, device="cuda")
+        fl = vf.standalone_fluid(pkg, COARSE_VOCAL_STEPS, device="cuda")
         cuda_ops.reset_launches()
         t0 = time.perf_counter()
         getattr(fl, entry)(verbose=False)
@@ -1682,9 +1713,11 @@ def phase16_coarse_vocal_fold(torch, results):
             "eddy viscosity": _rel(s.eddy_viscosity_nodal,
                                    h.eddy_viscosity_nodal)}
     ok = (all(e <= 1e-6 for e in errs.values())
-          and s.time.get_timestep() == h.time.get_timestep() == 3)
+          and s.time.get_timestep() == h.time.get_timestep()
+          == COARSE_VOCAL_STEPS)
     say(f"{label}: standalone SCnsIM + SA (f64, {h.n_dofs} + "
-        f"{h.turbulence_model.n} dofs), 3 steps, run_on_device vs run() on "
+        f"{h.turbulence_model.n} dofs), {COARSE_VOCAL_STEPS} steps, "
+        f"run_on_device vs run() on "
         f"CUDA: " + ", ".join(f"{k} rel err {v:.3e}"
                               for k, v in errs.items())
         + f" (rtol 1e-6); {t_s:.2f} s vs {t_h:.2f} s; launches "
@@ -1698,8 +1731,8 @@ def phase16_coarse_vocal_fold(torch, results):
                 torch, fl.turbulence_model, dt, gen), dt, results,
                 only=set(launched))
         _check_launched(torch, label, fl, launched, results)
-    paths["coarse_scnsim_sa_run"] = _path(l_h, 3)
-    paths["coarse_scnsim_sa_stepper"] = _path(l_s, 3)
+    paths["coarse_scnsim_sa_run"] = _path(l_h, COARSE_VOCAL_STEPS)
+    paths["coarse_scnsim_sa_stepper"] = _path(l_s, COARSE_VOCAL_STEPS)
     return paths
 
 
@@ -1847,14 +1880,15 @@ def _check_snapshots(torch, label, snaps, solid, launches, results,
                           dt, results, only=set(launches))
 
 
-def shell_kernel_cases(torch, shell, dt, gen):
+def shell_kernel_cases(torch, shell, dt, gen, what="shell stiffness"):
     """The scalar layout at the flat shell's own table (5 dofs x 4 nodes
-    per cell: 20 x 20 blocks for Q1), with random blocks from `gen`."""
+    per cell: 20 x 20 blocks for Q1), or another scalar table, with random
+    blocks from `gen`."""
     from openifem_tpu_torch.la import operators as ops
     n_c, nl = shell.cell_dofs.shape
     A = torch.randn(n_c, nl, nl, generator=gen, device="cuda", dtype=dt)
     x = torch.randn(shell.n_dofs, generator=gen, device="cuda", dtype=dt)
-    return [("element_matvec", n_c, "shell stiffness",
+    return [("element_matvec", n_c, what,
              lambda: ops.element_matvec(A, shell.cell_dofs, shell.n_dofs, x),
              lambda: ops.element_matvec_plain(A, shell.cell_dofs,
                                               shell.n_dofs, x))]
@@ -2033,7 +2067,7 @@ def phase18_coarse_amr(torch, results):
 
     # (b) the cylinder at refine 1: InsIM.run with Kelly AMR every step
     def cylinder(dev):
-        fl = fc.cylinder_case(pkg, "r1", refine=1, n_steps=3,
+        fl = fc.cylinder_case(pkg, "r1", refine=1, n_steps=KELLY_STEPS,
                               bench_precision=False, device=dev)
         dt = fl.params.time_step
         fl.params.refinement_interval = fl.time.refinement_interval = dt
@@ -2053,17 +2087,18 @@ def phase18_coarse_amr(torch, results):
     cc, _, c_steps = cylinder("cpu")
     t_cpu = time.perf_counter() - t0
     err = _rel(gc.present_solution, cc.present_solution)
-    ok = (g_steps == c_steps and len(g_steps) == 3 and err <= 1e-6
+    ok = (g_steps == c_steps and len(g_steps) == KELLY_STEPS and err <= 1e-6
           and np.array_equal(gc.mesh.cells, cc.mesh.cells)
           and g_steps[-1][1] > c_snaps[0][0].mesh.n_cells)
     say(f"{label}: cylinder r1 (f64) through InsIM.run, Kelly AMR (levels "
-        f"1..3) after every step, 3 steps: (Newton, cells, dofs after the "
+        f"1..3) after every step, {KELLY_STEPS} steps: (Newton, cells, dofs "
+        f"after the "
         f"step's refinement) CUDA {g_steps} CPU {c_steps}; solution rel err"
         f" {err:.3e} (rtol 1e-6); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "the cylinder with Kelly AMR: CUDA and CPU disagree")
     _check_snapshots(torch, label, c_snaps, None, cyl, results)
-    paths["coarse_amr_cylinder"] = _path(cyl, 3)
+    paths["coarse_amr_cylinder"] = _path(cyl, KELLY_STEPS)
 
     # (c) the 2-D MPI block: saved at step 2, restarted to step 4
     def block(dev, n_steps):
@@ -2379,6 +2414,231 @@ def phase19_adaptive(torch, results, n_steps):
             "shell_plate_64": _path(sl, 1)}
 
 
+# -- the sharded paths (parallel/shard.py, entry.py) ------------------------
+
+def _rank_tables_check(torch, label, tables, launched, results, seed=201):
+    """Hold every shape in `launched` (and its float32 twin) against its
+    plain version at the rank tables it was launched with (entry.py's
+    snapshots: "fluid" tables in a solver's form, "solid" scalar
+    tables)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    only = set(launched) | {(lay, "float32", n, r, c)
+                            for lay, _, n, r, c in launched}
+    for dt in (torch.float64, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for t in tables:
+            ns = SimpleNamespace(
+                mesh=SimpleNamespace(n_cells=t["n_cells"]),
+                **{k: torch.as_tensor(v, device="cuda")
+                   if isinstance(v, np.ndarray) else v
+                   for k, v in t.items() if k not in ("kind", "n_cells")})
+            cases = kernel_cases(torch, ns, None, dt, gen) \
+                if t["kind"] == "fluid" else \
+                shell_kernel_cases(torch, ns, dt, gen, "rank scalar table")
+            check_kernels(torch, label, cases, dt, results, only=only)
+
+
+def _vs_cpu(name, card, cpu):
+    """(relative error, counts equal) of a card check against the same
+    check on the CPU."""
+    import numpy as np
+    key = {"element_newton": "du", "insim_newton": "du",
+           "supg_newton": "du", "stepper": "u", "fsi_window": "state",
+           "mpi_fsi_window": "state", "stencil_asolve": "x",
+           "solid_cg": "u"}[name]
+    a, b = np.asarray(card[key]), np.asarray(cpu[key])
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    counts = [k for k in ("iters", "newton") if k in card]
+    same = all(np.array_equal(card[k], cpu[k]) for k in counts)
+    return err, same
+
+
+def _case_launches(launches):
+    """The counts of entry.rank_run's cases (launches[case]) summed: the
+    rank's whole run."""
+    return sum((Counter(c) for c in launches.values()), Counter())
+
+
+def phase20_dryrun(torch, results, steps4):
+    """entry.dryrun_multichip on the card: one rank (NCCL) with the JAX
+    dry run's 5-step windows, then 4 ranks sharing the card (gloo) with
+    `steps4`-step windows; every check against the unsharded card run
+    with the dry run's tolerances, the one-rank results also against the
+    CPU (1e-6, equal Newton and Krylov counts); every kernel shape the
+    ranks launched against its plain version at the ranks' tables.  Each
+    check is a path of its own, dryrun_<ranks>_<check>: its launches summed
+    over the ranks, per step of that check (entry.py's "steps": a time
+    step of a window or the beam, one Newton iteration, one CG solve)."""
+    from openifem_tpu_torch import entry
+    label = "phase 20"
+    paths = {}
+    for n_ranks, steps in ((1, entry.WINDOW_STEPS), (4, steps4)):
+        t0 = time.perf_counter()
+        r = entry.dryrun_multichip(n_ranks, "cuda", window_steps=steps)
+        total = time.perf_counter() - t0
+        say(f"{label}: dryrun_multichip({n_ranks}) on the card, "
+            f"{steps}-step windows, in {total:.1f} s; collective routes "
+            f"{r['routes']}")
+        cpu = {}
+        if n_ranks == 1:
+            cpu = {name: entry.run_check(name, None, torch.device("cpu"),
+                                         steps) for name in entry.CHECKS}
+        for name in entry.CHECKS:
+            sh, ref = r["sharded"][name], r["reference"][name]
+            counts = {k: sh[k] for k in ("iters", "newton") if k in sh}
+            line = (f"{label}: {n_ranks} rank(s), {name}: sharded vs "
+                    f"unsharded " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in r["errors"][name].items())
+                    + f"; counts {counts}; rank {sh['run_seconds']:.2f} s, "
+                    f"unsharded {ref['run_seconds']:.2f} s")
+            if cpu:
+                err, same = _vs_cpu(name, sh, cpu[name])
+                ok = err <= 1e-6 and same
+                line += (f"; against the CPU rel err {err:.3e} (1e-6), "
+                         f"counts equal {same} {'ok' if ok else 'FAILED'}")
+                _require(label, ok, f"{name} at one rank differs from the "
+                         "CPU")
+            say(line)
+        launched = Counter()
+        for name in entry.CHECKS:
+            own = sum((Counter(c[name]) for c in r["launches"]), Counter())
+            n = r["sharded"][name]["steps"]
+            say(f"{label}: {n_ranks} rank(s), {name}: launches over the "
+                f"ranks {dict(own)} in {n} step(s)")
+            paths[f"dryrun_{n_ranks}_{name}"] = _path(own, n)
+            launched += own
+        _rank_tables_check(torch, label, [t for ts in r["tables"]
+                                          for t in ts], launched, results)
+    return paths
+
+
+def phase21_full(torch, results, refine):
+    """The sharded functions at full width: (a) the sharded stepper at
+    world size 1 on the cavity at `refine` (6: 37,507 dofs), a 2-step
+    window against make_on_device_stepper's; (b) the plane-sharded
+    stencil A-solve at refine 7 (132,098 velocity dofs) with 4 ranks
+    sharing the card and at world size 1, against the replicated stencil
+    FGMRES; (c) sharded_supg_newton at world size 1 on SCnsIM's cylinder
+    r3 (18,384 dofs) against the unsharded element branch; (d)
+    sharded_element_cg with 4 ranks on the 64 x 64 shell plate (21,125
+    dofs) against the unsharded Jacobi CG."""
+    import numpy as np
+
+    from openifem_tpu_torch import entry
+    from openifem_tpu_torch.parallel import spawn_ranks
+    label = "phase 21"
+    cuda = torch.device("cuda")
+    paths = {}
+
+    def err_of(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+
+    def per_step(d, n):
+        return {k: v / n for k, v in d.items()}
+
+    # (a) the sharded stepper, world size 1 (NCCL)
+    n_steps = 2
+    out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
+        ("a", "stepper_window", dict(refine=refine, n_steps=n_steps)),))
+    sh = out["a"]
+    ref = entry.numpy_tree(entry.stepper_window(None, cuda, refine, n_steps))
+    err = err_of(sh["u"], ref["u"])
+    ok = (err < 1e-5 and sh["rel"] < sh["tol"] and ref["rel"] < ref["tol"]
+          and sh["newton"] == ref["newton"])
+    say(f"{label} (a): cavity refine {refine} ({sh['dofs']} dofs), "
+        f"{n_steps}-step window after the host first step, world size 1 "
+        f"({routes['all_reduce']}): sharded stepper "
+        f"{1e3 * sh['seconds'] / n_steps:.1f} ms/step, unsharded "
+        f"{1e3 * ref['seconds'] / n_steps:.1f} ms/step; rel err "
+        f"{err:.3e} (1e-5 of the scale); worst rel res {sh['rel']:.3e} / "
+        f"{ref['rel']:.3e} (tol {sh['tol']:.0e}); max Newton "
+        f"{sh['newton']} / {ref['newton']}; all-reduces per step "
+        f"{per_step(sh['calls'], n_steps)}, bytes per step "
+        f"{per_step(sh['nbytes'], n_steps)}; host syncs per step "
+        f"{sh['syncs'] / n_steps:.0f} / {ref['syncs'] / n_steps:.0f}; peak "
+        f"memory {sh['peak_bytes'] / 2**20:.1f} / "
+        f"{ref['peak_bytes'] / 2**20:.1f} MiB; both windows "
+        f"{sh['seconds'] + ref['seconds']:.1f} s {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "the sharded stepper differs from the unsharded")
+    launched = _case_launches(launches)
+    _rank_tables_check(torch, label, sh["tables"], launched, results)
+    # launches over the rank's run; per step of the window alone
+    paths["sharded_stepper"] = (launched, per_step(sh["launches"], n_steps))
+
+    # (b) the plane-sharded stencil A-solve at refine 7
+    ref = entry.numpy_tree(entry.stencil_asolve(None, cuda, 7))
+    for n_ranks in (4, 1):
+        out, launches, routes = spawn_ranks(entry.rank_run, n_ranks, "cuda",
+                                            (("b", "stencil_asolve",
+                                              dict(refine=7)),))
+        sh = out["b"]
+        err = err_of(sh["x"], ref["x"])
+        ok = err < 1e-8 and abs(int(sh["iters"]) - int(ref["iters"])) <= 2
+        P0, cx, R, k = sh["planes"]
+        d = 2
+        n_mv = sh["calls"].get("neighbour_exchange", 0) // 2
+        say(f"{label} (b): stencil A-solve at refine 7 ({sh['n_u']} "
+            f"velocity dofs, {P0} planes of {R} slots, {cx} a rank), "
+            f"{n_ranks} rank(s) ({routes}): {1e3 * sh['seconds']:.1f} "
+            f"ms/solve (replicated {1e3 * ref['seconds']:.1f}), iterations "
+            f"{sh['iters']} / {ref['iters']}; rel err {err:.3e} (1e-8); "
+            f"halo per matvec {2 * k * R * d} values "
+            f"({2 * k * R * d * 8} B) per inner boundary, "
+            f"{n_ranks - 1} boundaries; collectives per solve "
+            f"{sh['calls']} ({n_mv} matvecs), {sh['nbytes']} B, staged "
+            f"through host {sh['staged']} B {'ok' if ok else 'FAILED'}")
+        _require(label, ok, "the plane-sharded A-solve differs")
+        _require(label, not _case_launches(launches),
+                 f"the stencil solve launched {launches}")
+
+    # (c) sharded_supg_newton, world size 1
+    out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
+        ("c", "supg_newton", dict(refine=3)),))
+    sh = out["c"]
+    t_sh = sh["run_seconds"]
+    t0 = time.perf_counter()
+    ref = entry.numpy_tree(entry.supg_newton(None, cuda, 3))
+    t_ref = time.perf_counter() - t0
+    rn, rn_ref = float(sh["res_norm"]), float(ref["res_norm"])
+    err = err_of(sh["du"], ref["du"])
+    ok = abs(rn - rn_ref) < 1e-10 * max(1.0, rn_ref) and err < 1e-5
+    say(f"{label} (c): SCnsIM cylinder r3 ({sh['dofs']} dofs), one Newton "
+        f"iteration, world size 1 ({routes['all_reduce']}): res_norm "
+        f"{rn:.12e} / {rn_ref:.12e}, du rel err {err:.3e} (1e-5); FGMRES "
+        f"{sh['iters']} / {ref['iters']}; {t_sh:.2f} s sharded (set-up "
+        f"included), {t_ref:.2f} s unsharded {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "sharded_supg_newton differs from the unsharded")
+    launched = _case_launches(launches)
+    _rank_tables_check(torch, label, sh["tables"], launched, results)
+    paths["sharded_supg_newton"] = _path(launched, 1)
+
+    # (d) sharded_element_cg, 4 ranks sharing the card
+    per_rank = spawn_ranks(entry.rank_run, 4, "cuda", (
+        ("d", "element_cg", dict(cells=64)),), all_ranks=True)
+    sh, routes = per_rank[0][0]["d"], per_rank[0][2]
+    ref = entry.numpy_tree(entry.element_cg(None, cuda, 64))
+    err = err_of(sh["x"], ref["x"])
+    ok = err < 1e-10 and abs(int(sh["iters"]) - int(ref["iters"])) <= 1
+    launched = sum((_case_launches(lc) for _, lc, _ in per_rank), Counter())
+    say(f"{label} (d): shell plate 64 x 64 ({sh['dofs']} dofs, 20 x 20 f64 "
+        f"blocks), sharded_element_cg on 4 ranks ({routes}): "
+        f"{1e3 * sh['seconds']:.1f} ms/solve, {sh['iters']} iterations "
+        f"({1e3 * sh['seconds'] / max(1, int(sh['iters'])):.3f} ms each); "
+        f"unsharded {1e3 * ref['seconds']:.1f} ms, {ref['iters']} "
+        f"iterations; rel err {err:.3e} (1e-10); collectives per solve "
+        f"{sh['calls']}, bytes {sh['nbytes']}, staged through host "
+        f"{sh['staged']} B {'ok' if ok else 'FAILED'}")
+    _require(label, ok, "sharded_element_cg differs from the unsharded CG")
+    _rank_tables_check(torch, label, [t for out, _, _ in per_rank
+                                      for t in out["d"]["tables"]], launched,
+                       results)
+    paths["sharded_element_cg"] = _path(launched, 1)
+    return paths
+
+
 def _run_phase(n, fn, *args):
     """fn(*args), then one line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -2389,7 +2649,7 @@ def _run_phase(n, fn, *args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 20))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 22))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
     ap.add_argument("--scnsim-depth", default=",".join(map(str, (
@@ -2479,6 +2739,12 @@ def main():
         if 19 in want:
             runs.update(_run_phase(19, phase19_adaptive, torch, checked,
                                    args.amr_depth))
+        if 20 in want:
+            runs.update(_run_phase(20, phase20_dryrun, torch, checked,
+                                   DRYRUN4_STEPS))
+        if 21 in want:
+            runs.update(_run_phase(21, phase21_full, torch, checked,
+                                   CAVITY_REFINE))
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version

@@ -210,3 +210,39 @@ def leaflet_case(pkg, config: str = "fsi_leaflet", h: float = 0.05,
     if hierarchy is not None:
         fsi.fluid_mg_base = hierarchy[:-1]
     return fsi
+
+
+def main(argv=None):
+    """The JAX package's examples/fsi_leaflet.py on the port: the leaflet
+    through FSI.run, then the last state's VTU/PVD output (fluid-*.vtu,
+    solid-*.vtu and their .pvd collections) in the working directory, the
+    timers and the leaflet's tip deflection."""
+    import argparse
+    ap = argparse.ArgumentParser(description="Run the fsi_leaflet case on "
+                                 "the port and write its last state for "
+                                 "ParaView.")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--config", default="element", choices=CONFIGS,
+                    help="solver configuration (default: %(default)s, the "
+                         "plain preconditioner)")
+    ap.add_argument("--h", type=float, default=LEAFLET[4],
+                    help="base mesh size (default: %(default)s)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the port's, cuda)")
+    args = ap.parse_args(argv)
+    fsi = leaflet_case(port_package(), args.config, h=args.h,
+                       n_steps=args.steps, bench_precision=False,
+                       device=args.device)
+    fsi.run(verbose=True)
+    fluid, solid = fsi.fluid, fsi.solid
+    fluid.output_results()
+    solid.update_strain_and_stress()
+    solid.output_results()
+    fsi.timer.print_summary()
+    fluid.timer.print_summary()
+    d = solid.current_displacement.reshape(-1, 2)
+    print(f"leaflet tip deflection: {d[:, 0].max().item():.6e}")
+
+
+if __name__ == "__main__":
+    main()

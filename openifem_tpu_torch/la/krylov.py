@@ -38,29 +38,41 @@ def _weighted(weight, dtype):
     return None if weight is None else weight.to(dtype).reshape(-1)
 
 
-def _wnorm(v, w):
-    """sqrt(<v, w v>), or the 2-norm when w is None."""
+def _wnorm(v, w, reduce=None):
+    """sqrt(<v, w v>), or the 2-norm when w is None; with `reduce`, of the
+    reduced sum of the partial squares (sqrt(n * n) == n in binary
+    floating point, so an identity reduce keeps the bits)."""
     if w is None:
-        return torch.linalg.vector_norm(v)
+        n = torch.linalg.vector_norm(v)
+        return n if reduce is None else torch.sqrt(reduce(n * n))
     v = v.reshape(-1)
-    return torch.sqrt(torch.dot(v, w * v))
+    sq = torch.dot(v, w * v)
+    return torch.sqrt(sq if reduce is None else reduce(sq))
 
 
 def cg(op: Callable, b, x0=None, M: Optional[Callable] = None,
-       atol=1e-10, maxiter: int = 1000, weight=None) -> SolveResult:
+       atol=1e-10, maxiter: int = 1000, weight=None,
+       reduce: Optional[Callable] = None) -> SolveResult:
     """Preconditioned conjugate gradients; stops when ||r|| <= atol.
 
     weight: optional nonnegative vector defining a weighted inner product
     <a, b> = sum(w * a * b).  The structured-patch stencil layout
     (la/stencil.py) stores shared nodes once per incident patch; ownership
     weights (1 owned / 0 duplicate) make the duplicated solve exactly
-    equivalent to the flat one."""
+    equivalent to the flat one.
+
+    reduce: optional callable applied to every partial inner product (a
+    sum over the ranks holding pieces of the vectors, parallel/shard.py);
+    None for vectors held whole."""
     x = torch.zeros_like(b) if x0 is None else x0
     if M is None:
         M = lambda v: v  # noqa: E731
     w = _weighted(weight, b.dtype)
     dot = _dot if w is None else \
         (lambda a, c: _dot(a, w * c.reshape(-1)))  # noqa: E731
+    if reduce is not None:
+        local_dot = dot
+        dot = lambda a, c: reduce(local_dot(a, c))  # noqa: E731
     atol = torch.as_tensor(atol, dtype=b.dtype, device=b.device)
 
     r = b - op(x)
@@ -91,16 +103,20 @@ def _back_substitute(H, g, k):
     return y
 
 
-def _fgmres_cycle(op, M, x0, b, atol, restart: int, weight=None):
+def _fgmres_cycle(op, M, x0, b, atol, restart: int, weight=None,
+                  reduce=None):
     """One FGMRES(restart) cycle.  Returns (x, resnorm, iters).
 
     weight: optional weighted-inner-product vector (see cg): the CGS2
     projections become V @ (w * v) and the norms sqrt(<v, w v>), i.e.
-    Arnoldi in the weighted inner product."""
+    Arnoldi in the weighted inner product.  reduce (see cg): applied to
+    each norm's partial square and, once per CGS2 pass, to the whole
+    vector of projections."""
     ndt = _NP_DTYPE[b.dtype]
     w8 = _weighted(weight, b.dtype)
+    red = (lambda h: h) if reduce is None else reduce  # noqa: E731
     r0 = b - op(x0)
-    beta = ndt(_wnorm(r0, w8).item())
+    beta = ndt(_wnorm(r0, w8, reduce).item())
 
     V = torch.zeros((restart + 1,) + tuple(b.shape), dtype=b.dtype,
                     device=b.device)
@@ -120,11 +136,13 @@ def _fgmres_cycle(op, M, x0, b, atol, restart: int, weight=None):
         Z[k] = z
         # CGS2: two classical Gram-Schmidt passes against V[0..k]
         Vk = V[:k + 1].reshape(k + 1, -1)
-        h1 = Vk @ (w.reshape(-1) if w8 is None else w8 * w.reshape(-1))
+        h1 = red(Vk @ (w.reshape(-1) if w8 is None else
+                       w8 * w.reshape(-1)))
         w = w - (h1 @ Vk).reshape(w.shape)
-        h2 = Vk @ (w.reshape(-1) if w8 is None else w8 * w.reshape(-1))
+        h2 = red(Vk @ (w.reshape(-1) if w8 is None else
+                       w8 * w.reshape(-1)))
         w = w - (h2 @ Vk).reshape(w.shape)
-        wn = _wnorm(w, w8)
+        wn = _wnorm(w, w8, reduce)
         V[k + 1] = torch.where(wn > 0, w / torch.where(wn > 0, wn, 1.0),
                                0.0)
         hw = torch.cat([h1 + h2, wn.reshape(1)]).cpu().numpy()
@@ -161,9 +179,9 @@ def _fgmres_cycle(op, M, x0, b, atol, restart: int, weight=None):
 
 def fgmres(op: Callable, b, x0=None, M: Optional[Callable] = None,
            atol=1e-10, restart: int = 50, max_restarts: int = 4,
-           weight=None) -> SolveResult:
-    """Flexible right-preconditioned GMRES with restarts (weight: see
-    cg)."""
+           weight=None, reduce: Optional[Callable] = None) -> SolveResult:
+    """Flexible right-preconditioned GMRES with restarts (weight, reduce:
+    see cg)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
@@ -171,10 +189,12 @@ def fgmres(op: Callable, b, x0=None, M: Optional[Callable] = None,
     ndt = _NP_DTYPE[b.dtype]
     atol = ndt(float(atol))
     x = x0
-    res = ndt(_wnorm(b - op(x0), _weighted(weight, b.dtype)).item())
+    res = ndt(_wnorm(b - op(x0), _weighted(weight, b.dtype),
+                     reduce).item())
     total_k, cyc = 0, 0
     while res > atol and cyc < max_restarts:
-        x, res, k = _fgmres_cycle(op, M, x, b, atol, restart, weight)
+        x, res, k = _fgmres_cycle(op, M, x, b, atol, restart, weight,
+                                  reduce)
         total_k += k
         cyc += 1
     return SolveResult(x=x, iters=total_k, residual=float(res))

@@ -25,6 +25,12 @@ from ...parameters import (AllParameters, component_flag_to_mask,
 from ...utils.timectl import Time
 
 
+def _whole(y):
+    """The cell reduce of a solver that holds every cell: the identity
+    (parallel/shard.py gives a rank its sum over the ranks)."""
+    return y
+
+
 class FluidSolverBase:
     # Newton-target-aware forcing for the outer FGMRES (see the JAX
     # package, openifem_tpu/solvers/fluid/base.py).  None keeps the

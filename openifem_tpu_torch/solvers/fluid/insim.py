@@ -34,7 +34,7 @@ from ...la.operators import (element_diag, element_matvec,
                              element_matvec_p_to_u_nodeblock,
                              element_matvec_taylor_hood,
                              element_matvec_u_to_p_nodeblock, scatter_add)
-from .base import FluidSolverBase
+from .base import FluidSolverBase, _whole
 
 
 class InsIM(FluidSolverBase):
@@ -370,8 +370,14 @@ class InsIM(FluidSolverBase):
 
     def _make_preconditioner(self, A_loc, ucons, pcons):
         """Grad-Div block-Schur right preconditioner (reference:
-        source/insim.cpp:55-120)."""
+        source/insim.cpp:55-120).
+
+        On a rank's view of the solver (parallel/shard.py) the cell
+        tables are the rank's and `cell_reduce` is the sum over the ranks:
+        every element-block apply and diagonal then covers the rank's
+        cells and is reduced.  A solver has no cell_reduce."""
         from ...la.multigrid import GalerkinMG
+        red = getattr(self, "cell_reduce", None) or _whole
         params = self.params
         d = self.dim
         gamma, rho = params.grad_div, params.fluid_rho
@@ -401,7 +407,7 @@ class InsIM(FluidSolverBase):
         Aup_b = Aup.reshape(n_c, nlu, d, nlp)
 
         op_A = ucons.wrap_operator(
-            lambda x: element_matvec_nodeblock(Auu_b, cn_u, n_un, x))
+            lambda x: red(element_matvec_nodeblock(Auu_b, cn_u, n_un, x)))
         if self.a_block_jacobi:
             # nodal d x d block-Jacobi: the grad-div term couples velocity
             # components, which pointwise Jacobi ignores
@@ -411,6 +417,7 @@ class InsIM(FluidSolverBase):
             D = torch.zeros((n_un, d, d), dtype=pdt, device=self.device)
             D.index_add_(0, cn_u.reshape(-1).long(),
                          diag_blocks.reshape(-1, d, d))
+            D = red(D)
             fixed = ucons.fixed.reshape(n_un, d)
             fi = fixed[:, :, None] | fixed[:, None, :]
             D = torch.where(fi, torch.eye(d, dtype=pdt, device=self.device),
@@ -422,7 +429,7 @@ class InsIM(FluidSolverBase):
                                     r.reshape(n_un, d)).reshape(-1)
         else:
             diag_A = torch.where(ucons.fixed, 1.0,
-                                 element_diag(Auu, cd_u, self.n_u))
+                                 red(element_diag(Auu, cd_u, self.n_u)))
             dinv_A = torch.where(diag_A != 0, 1.0 / diag_A, 1.0)
 
             def apply_dinv_A(r):
@@ -430,13 +437,14 @@ class InsIM(FluidSolverBase):
 
         def apply_B(xu):   # u -> p   (condensed)
             xu = ucons.expand(xu)
-            y = element_matvec_u_to_p_nodeblock(Apu_b, cn_u, cd_p, self.n_p,
-                                                xu)
+            y = red(element_matvec_u_to_p_nodeblock(Apu_b, cn_u, cd_p,
+                                                    self.n_p, xu))
             return pcons.restrict(y) if pcons.any_hanging else y
 
         def apply_BT(xp):  # p -> u   (condensed)
             xp = pcons.expand(xp) if pcons.any_hanging else xp
-            y = element_matvec_p_to_u_nodeblock(Aup_b, cn_u, cd_p, n_un, xp)
+            y = red(element_matvec_p_to_u_nodeblock(Aup_b, cn_u, cd_p, n_un,
+                                                    xp))
             return ucons.restrict(y)
 
         mu_inv = torch.where(Mu_diag != 0, 1.0 / Mu_diag, 1.0)
@@ -448,12 +456,12 @@ class InsIM(FluidSolverBase):
         # Jacobi preconditioner for the mass-Schur CG from the cell-local
         # diagonal of B diag(Mu)^-1 B^T
         sm_diag_loc = torch.einsum("cnk,ck,cnk->cn", Apu, mu_inv[cd_u], Apu)
-        sm_diag = scatter_add(self.n_p, cd_p, sm_diag_loc)
+        sm_diag = red(scatter_add(self.n_p, cd_p, sm_diag_loc))
         sm_dinv = torch.where(
             sm_diag > 0, 1.0 / torch.where(sm_diag > 0, sm_diag, 1.0), 1.0)
 
         op_Mp = pcons.wrap_operator(
-            lambda x: element_matvec(Mp_loc, cd_p, self.n_p, x))
+            lambda x: red(element_matvec(Mp_loc, cd_p, self.n_p, x)))
         mp_dinv = torch.where(Mp_diag != 0, 1.0 / Mp_diag, 1.0)
 
         if self.dense_precond:
@@ -625,12 +633,14 @@ class InsIM(FluidSolverBase):
         nlu = self.nu_loc // self.dim
         mdt = torch.float32 if self.f32_matrix else A_loc.dtype
         A_op = A_loc.to(mdt)
+        # a rank's cells only when parallel/shard.py shards the solver
+        red = getattr(self, "cell_reduce", None) or _whole
 
         def apply_A(x):
             y = element_matvec_taylor_hood(
                 A_op, self.cell_nodes_u, self.cell_dofs_p, nlu, self.dim,
                 self.n_u, self.n_p, x.to(mdt), cell_dofs=self.cell_dofs)
-            return y.to(x.dtype)
+            return red(y).to(x.dtype)
 
         op = cons.wrap_operator(apply_A)
         precond = self._make_preconditioner(A_loc, ucons, pcons)

@@ -47,7 +47,7 @@ from ...la.operators import (element_diag, element_matvec,
                              element_matvec_rect,
                              element_matvec_taylor_hood,
                              element_matvec_u_to_p_nodeblock, scatter_add)
-from .base import FluidSolverBase
+from .base import FluidSolverBase, _whole
 
 CP_TO_CV = 1.4          # reference: source/mpi_scnsim.cpp:124
 ATM = 1013250.0         # reference: source/mpi_scnsim.cpp:125
@@ -372,7 +372,13 @@ class SUPGFluidSolver(FluidSolverBase):
         The returned precond(v) has the attributes `stats` (v -> (result,
         Tpp GMRES iterations)) and `pieces`, a dict of the closures and
         tensors it is made of (apply_Avp, apply_Apv, op_App, Tpp, tpp_M,
-        pvv_inv, b2pp_diag, x0), for tests and probes."""
+        pvv_inv, b2pp_diag, x0), for tests and probes.
+
+        On a rank's view of the solver (parallel/shard.py) the cell
+        tables are the rank's and `cell_reduce` is the sum over the ranks:
+        every element-block apply and diagonal then covers the rank's
+        cells and is reduced.  A solver has no cell_reduce."""
+        red = getattr(self, "cell_reduce", None) or _whole
         pdt = torch.float32 if self.mixed_precision_precond else A_loc.dtype
         A_loc = A_loc.to(pdt)
         nu = self.nu_loc
@@ -383,7 +389,7 @@ class SUPGFluidSolver(FluidSolverBase):
         cd_u, cd_p = self.cell_dofs_u, self.cell_dofs_p
 
         diag_Avv = torch.where(ucons.fixed, 1.0,
-                               element_diag(Avv, cd_u, self.n_u))
+                               red(element_diag(Avv, cd_u, self.n_u)))
         pvv_inv = torch.where(diag_Avv != 0, 1.0 / diag_Avv, 1.0)
 
         def Pvv_inverse(x):
@@ -423,12 +429,12 @@ class SUPGFluidSolver(FluidSolverBase):
         elif branch == "rect":
             def apply_Avp(xp):
                 xp = pcons.expand(xp) if pcons.any_hanging else xp
-                y = element_matvec_rect(Avp, cd_u, cd_p, self.n_u, xp)
+                y = red(element_matvec_rect(Avp, cd_u, cd_p, self.n_u, xp))
                 return ucons.restrict(y)
 
             def apply_Apv(xu):
                 xu = ucons.expand(xu)
-                y = element_matvec_rect(Apv, cd_p, cd_u, self.n_p, xu)
+                y = red(element_matvec_rect(Apv, cd_p, cd_u, self.n_p, xu))
                 return pcons.restrict(y) if pcons.any_hanging else y
         else:
             # node-block layout (also behind the dense branch, whose
@@ -444,19 +450,19 @@ class SUPGFluidSolver(FluidSolverBase):
 
             def apply_Avp(xp):
                 xp = pcons.expand(xp) if pcons.any_hanging else xp
-                y = element_matvec_p_to_u_nodeblock(
-                    Avp_b, cn_u, cd_p, self.n_u // d, xp)
+                y = red(element_matvec_p_to_u_nodeblock(
+                    Avp_b, cn_u, cd_p, self.n_u // d, xp))
                 return ucons.restrict(y)
 
             def apply_Apv(xu):
                 xu = ucons.expand(xu)
-                y = element_matvec_u_to_p_nodeblock(
-                    Apv_b, cn_u, cd_p, self.n_p, xu)
+                y = red(element_matvec_u_to_p_nodeblock(
+                    Apv_b, cn_u, cd_p, self.n_p, xu))
                 return pcons.restrict(y) if pcons.any_hanging else y
 
         if st is None:
             op_App = pcons.wrap_operator(
-                lambda x: element_matvec(App, cd_p, self.n_p, x))
+                lambda x: red(element_matvec(App, cd_p, self.n_p, x)))
 
         def Tpp(xp):
             y = op_App(xp) - apply_Apv(Pvv_inverse(apply_Avp(xp)))
@@ -466,12 +472,13 @@ class SUPGFluidSolver(FluidSolverBase):
         # cell-local contribution to the product's diagonal (the reference
         # builds the full matrix and takes ILU(0))
         rowsum_loc = torch.abs(Avv).sum(dim=2)
-        rowsum = scatter_add(self.n_u, cd_u, rowsum_loc)
+        rowsum = red(scatter_add(self.n_u, cd_u, rowsum_loc))
         rinv = torch.where(rowsum != 0, 1.0 / rowsum, 1.0)
         rinv_loc = rinv[cd_u]
         prod_diag_loc = es("cnk,ck,ckn->cn", Apv, rinv_loc, Avp)
         diag_App = element_diag(App, cd_p, self.n_p)
-        b2pp_diag = diag_App - scatter_add(self.n_p, cd_p, prod_diag_loc)
+        b2pp_diag = red(diag_App - scatter_add(self.n_p, cd_p,
+                                               prod_diag_loc))
         b2pp_diag = torch.where(pcons.fixed, 1.0, b2pp_diag)
         b2pp_inv = torch.where(torch.abs(b2pp_diag) > 1e-300,
                                1.0 / b2pp_diag, 1.0)
@@ -587,12 +594,15 @@ class SUPGFluidSolver(FluidSolverBase):
                     st.flat_matvec(sys_W, self._sys_to_nodal(x.to(mdt))))
                 return y.to(x.dtype)
         else:
+            # a rank's cells only when parallel/shard.py shards the solver
+            red = getattr(self, "cell_reduce", None) or _whole
+
             def apply_A(x):
                 y = element_matvec_taylor_hood(
                     A_op, self.cell_nodes_u, self.cell_dofs_p, nlu,
                     self.dim, self.n_u, self.n_p, x.to(mdt),
                     cell_dofs=self.cell_dofs)
-                return y.to(x.dtype)
+                return red(y).to(x.dtype)
         op = cons.wrap_operator(apply_A)
         precond = self._make_preconditioner(A_loc, ucons, pcons,
                                             sys_W=sys_W)

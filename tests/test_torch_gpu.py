@@ -820,3 +820,30 @@ def test_refine_and_restart_on_the_card(cuda, tmp_path, monkeypatch):
                    g.fluid.present_solution.cpu()) <= 1e-10
     assert rel_err(r.solid.current_displacement.cpu(),
                    g.solid.current_displacement.cpu()) <= 1e-10
+
+
+# -- parallel/shard.py on the card: the dry run's checks at world size 1
+# (NCCL) and with 2 ranks sharing the card (gloo unless each rank has a
+# card of its own), against the unsharded card run with the dry run's
+# tolerances (entry.compare raises on a miss)
+
+@pytest.mark.parametrize("n_ranks,checks", [
+    (1, ("element_newton", "insim_newton", "supg_newton", "solid_cg")),
+    (2, ("insim_newton", "stencil_asolve", "solid_cg")),
+], ids=["nccl_world_size_1", "two_ranks_share_the_card"])
+def test_sharded_checks_on_the_card(cuda, n_ranks, checks):
+    from openifem_tpu_torch import entry
+    from openifem_tpu_torch.parallel.shard import backend_for
+    r = entry.dryrun_multichip(n_ranks, "cuda", checks=checks)
+    assert set(r["errors"]) == set(checks)
+    backend = backend_for("cuda", n_ranks)
+    assert backend == ("nccl" if n_ranks <= torch.cuda.device_count()
+                       else "gloo")
+    assert r["routes"]["all_reduce"] == backend
+    if backend == "gloo":
+        assert r["routes"]["all_gather"] == "gloo via pinned host"
+    # every rank launched the kernel on its own cells in every check but
+    # the stencil solve, which runs no element-block apply
+    assert all(sum(launches[name].values()) > 0
+               for launches in r["launches"] for name in checks
+               if name != "stencil_asolve")

@@ -33,7 +33,7 @@ def test_port_never_imports_jax():
         "          'solvers.turbulence.spalart_allmaras', 'fsi.cv_fsi',\n"
         "          'cases.vocal_fold', 'io.checkpoint', 'fe.kelly',\n"
         "          'fe.transfer', 'solvers.solid.shell',\n"
-        "          'cases.shell_plate'):\n"
+        "          'cases.shell_plate', 'parallel.shard', 'entry'):\n"
         "    assert 'openifem_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     r = _run(code)
