@@ -134,18 +134,23 @@ and 1 always run):
      printed); the shell plate at 64 x 64 cells (21,125 dofs): CG
      iterations and solve ms, within 4 % of Kirchhoff.
  20. the sharded paths (parallel/shard.py), coarse, f64:
-     entry.dryrun_multichip with one rank (NCCL; the JAX dry run's 5-step
-     windows) and with 4 ranks sharing the card (gloo, 2-step windows;
-     the route of each collective printed): the
-     element-sharded Newton, the padded InsIM Newton (n_u, n_p not
-     multiples of 4), the sharded stepper, the padded SCnsIM Newton, the
-     FSI and MPIFSI coupled windows, the plane-sharded stencil A-solve and
-     the dof-sharded solid CG, each against the unsharded card run with
-     the dry run's tolerances, the one-rank results also against the CPU
-     (1e-6, equal Newton and Krylov counts);
- 21. the sharded paths at full width: (a) make_sharded_stepper at world
-     size 1 on the cavity at refine 6 (37,507 dofs), a
-     2-step window against make_on_device_stepper's (1e-5 of the scale,
+     entry.dryrun_multichip with one rank (NCCL; 3-step windows, the JAX
+     dry run's 5 on the CPU) and with 4 ranks sharing the card (gloo,
+     2-step windows;
+     the route of each collective printed), every solver with its default
+     preconditioner branches: the element-sharded Newton (the cavity's
+     stencil A-solve), the padded InsIM Newton (n_u, n_p not multiples of
+     4; range-sharded vectors), the range-sharded stepper, the padded
+     SCnsIM Newton, SCnsIM under shard_fluid_solver (coupled stencil,
+     Galerkin V-cycle), the FSI and MPIFSI coupled windows, the
+     plane-sharded stencil A-solve and the dof-sharded solid CG, each
+     against the unsharded card run with the dry run's tolerances, the
+     one-rank results also against the CPU (1e-6, equal Newton and Krylov
+     counts);
+ 21. the sharded paths at full width: (a) make_sharded_stepper (its
+     Krylov vectors range-sharded) at world size 1 on the cavity at refine
+     6 (37,507 dofs), a
+     1-step window against make_on_device_stepper's (1e-5 of the scale,
      converged, equal Newton counts; ms per step, all-reduces and bytes
      per step, host syncs, peak memory); (b) the plane-sharded stencil
      A-solve at refine 7 (132,098 velocity dofs) with 4 ranks sharing the
@@ -156,7 +161,19 @@ and 1 always run):
      du 1e-5); (d) sharded_element_cg on 4 ranks on the 64 x 64 shell
      plate (21,125 dofs) against the unsharded Jacobi CG (1e-10, CG counts
      at most 1 apart).
-Phases 8-21 then hold every kernel shape they launched against its plain
+ 22. the slice's paths sharded: (a) path A (fsi_leaflet, 17,249 dofs,
+     dense branch, bf16 A block) through FSI's host first step and 2
+     coupled steps and (b) path B (fsi_leaflet_r2, 232,997 dofs, stencil
+     A-solve, one V-cycle as Sm^-1) through the host first step and 1
+     coupled step, the fluid under shard_fluid_solver at world size 1
+     (NCCL) against the unsharded run, both with torch's deterministic
+     algorithms: state within 1e-6, equal Newton and Krylov counts, ms
+     per coupled step both ways, the collectives; (c) the range-sharded
+     stepper on the cavity at refine 4, a 1-step window, with 4 ranks
+     sharing the card (gloo) and with 1 (NCCL), against
+     make_on_device_stepper (1e-5, equal Newton): each rank's vector
+     lengths, Krylov basis bytes and peak memory.
+Phases 8-22 then hold every kernel shape they launched against its plain
 version as phase 2 does, at the path's own tables.  Phase 2 also checks
 the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p 8 x 24) in
 f32 and f64 on a 12^3 box.
@@ -170,7 +187,7 @@ if a plan is built after the configuration's first step; phases 12 and
 count their launches per (layout, dtype, number of cells, block rows,
 block columns); the script fails if a path launched a shape that no phase
 checked.  Then a JSON line with one entry per such shape (launches summed
-over the paths of phases 4 and 6-21, and per step of each path; error and
+over the paths of phases 4 and 6-22, and per step of each path; error and
 times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
@@ -262,11 +279,17 @@ KELLY_STEPS = 2
 # ... and of the coarse MPI-coupler and vocal-fold runs (phases 14 and 16;
 # 3 before)
 COARSE_MPI_STEPS = COARSE_VOCAL_STEPS = 2
-# phase 20: window steps of the dry run with 4 ranks sharing the card
-# (the one-rank run takes the JAX dry run's 5); phase 21 (a): the cavity's
-# refinements (6: 64 x 64 cells, 37,507 dofs)
-DRYRUN4_STEPS = 2
-CAVITY_REFINE = 6
+# phase 20: window steps of the dry run with one rank (the JAX dry run's
+# 5, which the CPU tests run, cut to 3 when phase 22 came) and with 4
+# ranks sharing the card; phase 21 (a): the cavity's refinements (6: 64 x
+# 64 cells, 37,507 dofs) and window steps (2 before phase 22)
+DRYRUN1_STEPS, DRYRUN4_STEPS = 3, 2
+CAVITY_REFINE, CAVITY_STEPS = 6, 1
+# phase 22: steps of the sharded paths A and B (the host first step
+# included), and the cavity's refinements and window steps of the
+# range-sharded stepper on 4 ranks sharing the card
+SHARDED_A_STEPS, SHARDED_B_STEPS = 3, 2
+RANGE_STEPPER = (4, 1)
 
 
 def say(msg):
@@ -2445,7 +2468,8 @@ def _vs_cpu(name, card, cpu):
     check on the CPU."""
     import numpy as np
     key = {"element_newton": "du", "insim_newton": "du",
-           "supg_newton": "du", "stepper": "u", "fsi_window": "state",
+           "supg_newton": "du", "supg_shard_newton": "du", "stepper": "u",
+           "fsi_window": "state",
            "mpi_fsi_window": "state", "stencil_asolve": "x",
            "solid_cg": "u"}[name]
     a, b = np.asarray(card[key]), np.asarray(cpu[key])
@@ -2462,8 +2486,8 @@ def _case_launches(launches):
 
 
 def phase20_dryrun(torch, results, steps4):
-    """entry.dryrun_multichip on the card: one rank (NCCL) with the JAX
-    dry run's 5-step windows, then 4 ranks sharing the card (gloo) with
+    """entry.dryrun_multichip on the card: one rank (NCCL) with
+    DRYRUN1_STEPS-step windows, then 4 ranks sharing the card (gloo) with
     `steps4`-step windows; every check against the unsharded card run
     with the dry run's tolerances, the one-rank results also against the
     CPU (1e-6, equal Newton and Krylov counts); every kernel shape the
@@ -2474,7 +2498,7 @@ def phase20_dryrun(torch, results, steps4):
     from openifem_tpu_torch import entry
     label = "phase 20"
     paths = {}
-    for n_ranks, steps in ((1, entry.WINDOW_STEPS), (4, steps4)):
+    for n_ranks, steps in ((1, DRYRUN1_STEPS), (4, steps4)):
         t0 = time.perf_counter()
         r = entry.dryrun_multichip(n_ranks, "cuda", window_steps=steps)
         total = time.perf_counter() - t0
@@ -2515,13 +2539,14 @@ def phase20_dryrun(torch, results, steps4):
 
 
 def phase21_full(torch, results, refine):
-    """The sharded functions at full width: (a) the sharded stepper at
-    world size 1 on the cavity at `refine` (6: 37,507 dofs), a 2-step
-    window against make_on_device_stepper's; (b) the plane-sharded
+    """The sharded functions at full width: (a) the range-sharded stepper
+    at world size 1 on the cavity at `refine` (6: 37,507 dofs), a
+    CAVITY_STEPS-step window against make_on_device_stepper's; (b) the plane-sharded
     stencil A-solve at refine 7 (132,098 velocity dofs) with 4 ranks
     sharing the card and at world size 1, against the replicated stencil
     FGMRES; (c) sharded_supg_newton at world size 1 on SCnsIM's cylinder
-    r3 (18,384 dofs) against the unsharded element branch; (d)
+    r3 (18,384 dofs) against the unsharded element branch (both without
+    the coupled stencil and the V-cycle); (d)
     sharded_element_cg with 4 ranks on the 64 x 64 shell plate (21,125
     dofs) against the unsharded Jacobi CG."""
     import numpy as np
@@ -2540,7 +2565,7 @@ def phase21_full(torch, results, refine):
         return {k: v / n for k, v in d.items()}
 
     # (a) the sharded stepper, world size 1 (NCCL)
-    n_steps = 2
+    n_steps = CAVITY_STEPS
     out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
         ("a", "stepper_window", dict(refine=refine, n_steps=n_steps)),))
     sh = out["a"]
@@ -2550,12 +2575,13 @@ def phase21_full(torch, results, refine):
           and sh["newton"] == ref["newton"])
     say(f"{label} (a): cavity refine {refine} ({sh['dofs']} dofs), "
         f"{n_steps}-step window after the host first step, world size 1 "
-        f"({routes['all_reduce']}): sharded stepper "
+        f"({routes['all_reduce']}): range-sharded stepper (vectors "
+        f"{sh['pieces']}, Krylov bases {sh['basis_bytes']} B) "
         f"{1e3 * sh['seconds'] / n_steps:.1f} ms/step, unsharded "
         f"{1e3 * ref['seconds'] / n_steps:.1f} ms/step; rel err "
         f"{err:.3e} (1e-5 of the scale); worst rel res {sh['rel']:.3e} / "
         f"{ref['rel']:.3e} (tol {sh['tol']:.0e}); max Newton "
-        f"{sh['newton']} / {ref['newton']}; all-reduces per step "
+        f"{sh['newton']} / {ref['newton']}; collectives per step "
         f"{per_step(sh['calls'], n_steps)}, bytes per step "
         f"{per_step(sh['nbytes'], n_steps)}; host syncs per step "
         f"{sh['syncs'] / n_steps:.0f} / {ref['syncs'] / n_steps:.0f}; peak "
@@ -2596,11 +2622,11 @@ def phase21_full(torch, results, refine):
 
     # (c) sharded_supg_newton, world size 1
     out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
-        ("c", "supg_newton", dict(refine=3)),))
+        ("c", "supg_newton", dict(refine=3, element=True)),))
     sh = out["c"]
     t_sh = sh["run_seconds"]
     t0 = time.perf_counter()
-    ref = entry.numpy_tree(entry.supg_newton(None, cuda, 3))
+    ref = entry.numpy_tree(entry.supg_newton(None, cuda, 3, element=True))
     t_ref = time.perf_counter() - t0
     rn, rn_ref = float(sh["res_norm"]), float(ref["res_norm"])
     err = err_of(sh["du"], ref["du"])
@@ -2639,6 +2665,130 @@ def phase21_full(torch, results, refine):
     return paths
 
 
+def _leaflet_pair(torch, label, config, n_steps, results, **kw):
+    """A leaflet bench configuration at full width (entry.leaflet_run)
+    with its fluid sharded by shard_fluid_solver in one rank (NCCL), and
+    unsharded here, both with torch's deterministic algorithms (the
+    card's index_add_ then sums in a fixed order: at world size 1 the two
+    runs make the same sums, so any difference is the sharding's): state
+    within 1e-6, equal Newton and Krylov counts per step.  Returns the
+    path (the rank's launches over its coupled steps)."""
+    import numpy as np
+
+    from openifem_tpu_torch import entry
+    from openifem_tpu_torch.parallel import spawn_ranks
+    kw = dict(config=config, n_steps=n_steps, **kw)
+    t0 = time.perf_counter()
+    out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
+        ("leaflet", "leaflet_run", kw),))
+    t_sh = time.perf_counter() - t0
+    sh = out["leaflet"]
+    t0 = time.perf_counter()
+    ref = entry.numpy_tree(entry.leaflet_run(None, torch.device("cuda"),
+                                             **kw))
+    t_ref = time.perf_counter() - t0
+    err = float(np.abs(sh["state"] - ref["state"]).max()
+                / np.abs(ref["state"]).max())
+    finite = bool(np.isfinite(sh["state"]).all())
+    ok = (finite and err <= 1e-6 and sh["newton"] == ref["newton"]
+          and sh["krylov"] == ref["krylov"] and sh["dofs"] == FULL_DOFS[config]
+          and sh["branches"] == ref["branches"])
+    n_coupled = sum(sh["coupled"])
+
+    def coupled_ms(r):
+        return [round(m, 1) for m, c in zip(r["ms"], r["coupled"]) if c]
+    per_step = {k: v / n_coupled for k, v in sh["calls"].items()}
+    say(f"{label}: {config} ({sh['dofs']} dofs, branches {sh['branches']}), "
+        f"host first step + {n_coupled} coupled, fluid sharded at world "
+        f"size 1 ({routes['all_reduce']}), deterministic algorithms: ms per "
+        f"coupled step sharded {coupled_ms(sh)}, unsharded "
+        f"{coupled_ms(ref)} (host first step {sh['ms'][0]:.1f} / "
+        f"{ref['ms'][0]:.1f}); state rel err {err:.3e} (1e-6); Newton "
+        f"(solid, fluid) {sh['newton']} / {ref['newton']}; Krylov per step "
+        f"{sh['krylov']} / {ref['krylov']}; collectives {sh['calls']} "
+        f"({ {k: round(v, 1) for k, v in per_step.items()} } per coupled "
+        f"step, those of the host first step included), bytes "
+        f"{sh['nbytes']}; peak memory {sh['peak_bytes'] / 2**20:.1f} / "
+        f"{ref['peak_bytes'] / 2**20:.1f} MiB; {t_sh:.1f} s with the rank's "
+        f"start, {t_ref:.1f} s unsharded {'ok' if ok else 'FAILED'}")
+    _require(label, ok, f"the sharded {config} differs from the unsharded")
+    _require(label, bool(sh["launches"]), "no kernel launched")
+    launched = _case_launches(launches)
+    _rank_tables_check(torch, label, sh["tables"], launched, results)
+    return launched, {k: v / n_coupled for k, v in sh["launches"].items()}
+
+
+def phase22_sharded_paths(torch, results, stepper):
+    """The slice's paths sharded on the card: (a) path A (fsi_leaflet,
+    17,249 dofs, the dense branch with the bf16 A block) and (b) path B
+    (fsi_leaflet_r2, 232,997 dofs, the stencil A-solve and one pressure
+    V-cycle as Sm^-1) through FSI's host first step and coupled steps with
+    the fluid under shard_fluid_solver at world size 1 (NCCL), against the
+    unsharded runs (_leaflet_pair); (c) the range-sharded stepper on the
+    cavity at `stepper` = (refine, window steps) with 4 ranks sharing the
+    card (gloo) and with one rank (NCCL), against make_on_device_stepper:
+    each rank's vector lengths, Krylov basis bytes and peak memory beside
+    the 1-rank and unsharded figures."""
+    from openifem_tpu_torch import entry
+    from openifem_tpu_torch.parallel import spawn_ranks
+    label = "phase 22"
+    paths = {"sharded_path_a": _leaflet_pair(
+        torch, f"{label} (a)", "fsi_leaflet", SHARDED_A_STEPS, results)}
+    paths["sharded_path_b"] = _leaflet_pair(
+        torch, f"{label} (b)", "fsi_leaflet_r2", SHARDED_B_STEPS, results,
+        extra_refine=2)
+
+    refine, n_steps = stepper
+    ref = entry.numpy_tree(entry.stepper_window(None, torch.device("cuda"),
+                                                refine, n_steps))
+    say(f"{label} (c): cavity refine {refine} ({ref['dofs']} dofs), "
+        f"{n_steps}-step window unsharded: {1e3 * ref['seconds']:.1f} ms, "
+        f"vectors {ref['pieces']}, Krylov bases {ref['basis_bytes']} B, "
+        f"peak memory {ref['peak_bytes'] / 2**20:.2f} MiB (this process "
+        f"held {ref['base_bytes'] / 2**20:.2f} MiB when the window began)")
+    for n_ranks in (4, 1):
+        per_rank = spawn_ranks(entry.rank_run, n_ranks, "cuda", (
+            ("c", "stepper_window", dict(refine=refine, n_steps=n_steps)),),
+            all_ranks=True)
+        routes = per_rank[0][2]
+        sh = per_rank[0][0]["c"]
+        err = _vs_ref(sh["u"], ref["u"])
+        ok = (err < 1e-5 and sh["rel"] < sh["tol"]
+              and sh["newton"] == ref["newton"])
+        for rank, (o, _, _) in enumerate(per_rank):
+            c = o["c"]
+            say(f"{label} (c): {n_ranks} rank(s), rank {rank}: vectors "
+                f"{c['pieces']} (pieces: outer [u_r | p_r], u, p; of the "
+                f"padded {c['pieces']['n_pad']}), Krylov bases "
+                f"{c['basis_bytes']} B, peak memory "
+                f"{c['peak_bytes'] / 2**20:.2f} MiB (held at the window's "
+                f"start {c['base_bytes'] / 2**20:.2f} MiB)")
+        say(f"{label} (c): {n_ranks} rank(s) ({routes}): range-sharded "
+            f"stepper {1e3 * sh['seconds'] / n_steps:.1f} ms/step, "
+            f"unsharded {1e3 * ref['seconds'] / n_steps:.1f}; rel err "
+            f"{err:.3e} (1e-5 of the scale); max Newton {sh['newton']} / "
+            f"{ref['newton']}; collectives per step "
+            f"{ {k: v / n_steps for k, v in sh['calls'].items()} }, bytes "
+            f"per step {sh['nbytes']} / {n_steps}, staged through host "
+            f"{sh['staged']} B {'ok' if ok else 'FAILED'}")
+        _require(label, ok, f"the range-sharded stepper at {n_ranks} ranks "
+                 "differs from the unsharded")
+        launched = sum((_case_launches(lc) for _, lc, _ in per_rank),
+                       Counter())
+        _rank_tables_check(torch, label, [t for o, _, _ in per_rank
+                                          for t in o["c"]["tables"]],
+                           launched, results)
+        paths[f"range_stepper_{n_ranks}"] = _path(launched, n_steps)
+    return paths
+
+
+def _vs_ref(a, b):
+    """max |a - b| relative to max(1, max |b|), on numpy arrays."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+
+
 def _run_phase(n, fn, *args):
     """fn(*args), then one line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -2649,7 +2799,7 @@ def _run_phase(n, fn, *args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 22))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 23))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
     ap.add_argument("--scnsim-depth", default=",".join(map(str, (
@@ -2745,6 +2895,9 @@ def main():
         if 21 in want:
             runs.update(_run_phase(21, phase21_full, torch, checked,
                                    CAVITY_REFINE))
+        if 22 in want:
+            runs.update(_run_phase(22, phase22_sharded_paths, torch,
+                                   checked, RANGE_STEPPER))
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version

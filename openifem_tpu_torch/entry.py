@@ -30,8 +30,16 @@ physics in both packages:
   solid_gravity_linearelastic.prm
                            the clamped LinearElasticity beam of the port's
                            solid tests.
-The sharded solvers take the element branch of their preconditioners
-(parallel/shard.py), and the unsharded runs here take it too.
+Every check runs the solvers with their default branches, sharded and
+unsharded, as the JAX dry run does: shard_fluid_solver runs every
+preconditioner branch (the cavity's stencil A-solve, SCnsIM's coupled
+stencil and Galerkin V-cycle); the padded Newton iterations take the
+element-block preconditioner in place of the stencils (the same blocks in
+another layout) and refuse the V-cycles, so the padded SCnsIM check runs
+without its V-cycle, as the JAX dry run's SCnsIM does.  Two checks exist
+to test the element branch and say so: fluid_steps (held against the JAX
+package's unsharded element-branch steps) and supg_newton(element=True)
+(chip_smoke.py phase 21).
 """
 
 from __future__ import annotations
@@ -44,8 +52,8 @@ import numpy as np
 import torch
 
 from .cases import fsi_disc, mpi_block
-from .cases.fluid_cylinder import scnsim_case
-from .cases.fsi_leaflet import port_package
+from .cases.fluid_cylinder import cylinder_hierarchy, scnsim_case
+from .cases.fsi_leaflet import leaflet_case, port_package
 from .la import cuda_ops
 from .parallel import (make_sharded_stepper, shard_fluid_solver,
                        shard_solid_solver, sharded_insim_newton,
@@ -54,7 +62,11 @@ from .parallel import (make_sharded_stepper, shard_fluid_solver,
 from .utils.timer import count_host_syncs
 
 CHECKS = ("element_newton", "insim_newton", "stepper", "supg_newton",
-          "fsi_window", "mpi_fsi_window", "stencil_asolve", "solid_cg")
+          "supg_shard_newton", "fsi_window", "mpi_fsi_window",
+          "stencil_asolve", "solid_cg")
+# the checks of one Newton iteration
+NEWTON_CHECKS = ("element_newton", "insim_newton", "supg_newton",
+                 "supg_shard_newton")
 # the checks that run a window of steps, and its default depth (the JAX
 # dry run's)
 WINDOWS = ("stepper", "fsi_window", "mpi_fsi_window")
@@ -146,6 +158,12 @@ def _tables(kind, ns):
     return snap
 
 
+def _scalar_table(kind, cell_dofs, n_dofs):
+    """A kernel-check snapshot of a scalar-layout table."""
+    return dict(kind=kind, cell_dofs=cell_dofs.cpu().numpy(),
+                n_dofs=int(n_dofs), n_cells=int(cell_dofs.shape[0]))
+
+
 def _fluid_tables(s):
     """The own-cell tables of a fluid that shard_fluid_solver sharded."""
     v = s.rank_view
@@ -167,9 +185,9 @@ def collective_counts(mesh, before):
 
 def check_element_newton(mesh, device):
     """shard_fluid_solver: one Newton iteration through the solver's own
-    _newton_iter_impl, cells split over the ranks."""
+    _newton_iter_impl, cells split over the ranks (the cavity's default
+    branch: the stencil A-solve, its weights from every cell's blocks)."""
     s = cavity(device=device)
-    s._u_stencil = None
     args = newton_args(s)
     tables = []
     if mesh is not None:
@@ -182,7 +200,10 @@ def check_element_newton(mesh, device):
 
 def fluid_steps(mesh, device, n_steps=2):
     """The cavity's first n_steps steps through InsIM.run_one_step, the
-    Newton iterations sharded by shard_fluid_solver."""
+    Newton iterations sharded by shard_fluid_solver.  A check of the
+    element branch: the stencil is turned off, as in the JAX package's
+    unsharded steps that tests/test_torch_parallel.py holds it against to
+    1e-10."""
     s = cavity(device=device, n_steps=n_steps)
     s._u_stencil = None
     if mesh is not None:
@@ -197,9 +218,12 @@ def fluid_steps(mesh, device, n_steps=2):
 def check_insim_newton(mesh, device, **knobs):
     """sharded_insim_newton on the padded layout (n_u = 578 and n_p = 81
     are not multiples of 4: the pad rows run); knobs: preconditioner
-    attributes set on the solver first (a_block_jacobi, a_poly, ...)."""
+    attributes set on the solver first (a_block_jacobi, a_poly, ...).
+    The unsharded iteration takes the cavity's stencil A-solve, the
+    padded one the element blocks (parallel/shard.py::_padded_newton).
+    "pieces": each rank's vector lengths; "lengths": those its operators
+    were given."""
     s = cavity(device=device)
-    s._u_stencil = None
     for name, value in knobs.items():
         setattr(s, name, value)
     args = newton_args(s)
@@ -210,7 +234,8 @@ def check_insim_newton(mesh, device, **knobs):
     newton = sharded_insim_newton(s, mesh)
     du, rn, its, _ = newton(*args)
     return dict(du=du, res_norm=rn, iters=its, steps=1,
-                tables=[_tables("fluid", newton.tables)])
+                tables=[_tables("fluid", newton.tables)],
+                pieces=newton.pieces, lengths=dict(newton.lengths))
 
 
 def stepper_window(mesh, device, refine=3, n_steps=WINDOW_STEPS,
@@ -223,19 +248,23 @@ def stepper_window(mesh, device, refine=3, n_steps=WINDOW_STEPS,
     too."""
     s = channel(device, n_steps + 1) if case == "channel" else \
         cavity(refine, device=device, n_steps=n_steps + 1)
-    s._u_stencil = None
     s.run_one_step(True, verbose=False)
     if mesh is None:
         run, tables = s.make_on_device_stepper(), []
+        pieces = dict(outer=s.n_dofs, u=s.n_u, p=s.n_p)
     else:
         run = make_sharded_stepper(s, mesh)
         tables = [_tables("fluid", run.tables)]
+        pieces = run.pieces
         coll_before = mesh.coll.counts()
     before = cuda_ops.launches.copy()
     cuda = s.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    # what the process held when the window began (in a long-lived
+    # process, more than this solver's)
+    base = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
     with count_host_syncs() as syncs:
         u, rel, its = run(s.present_solution, n_steps)
@@ -244,27 +273,42 @@ def stepper_window(mesh, device, refine=3, n_steps=WINDOW_STEPS,
     out = dict(u=u, rel=rel, newton=its, tables=tables,
                seconds=time.perf_counter() - t0, syncs=syncs["syncs"],
                peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+               base_bytes=base,
                launches=dict(cuda_ops.launches - before), dofs=s.n_dofs,
                tol=s.params.fluid_tolerance, steps=n_steps + 1)
+    # the Krylov bases that the window holds at once: the outer FGMRES's
+    # V and Z (2 outer_restart + 1 vectors) and the A-solve FGMRES's
+    item = 4 if s.mixed_precision_precond else 8
+    out.update(pieces=pieces, basis_bytes=dict(
+        outer=(2 * s.outer_restart + 1) * pieces["outer"] * 8,
+        a_solve=(2 * s.a_inner_restart + 1) * pieces["u"] * item))
     if mesh is not None:
-        out.update(collective_counts(mesh, coll_before))
+        out.update(collective_counts(mesh, coll_before),
+                   lengths=dict(run.lengths))
     return out
 
 
 def scnsim(refine=1, device=None, bench_precision=False, pkg=None):
-    """SCnsIM on the Turek cylinder (scnsim_case), on the element branch
-    with the B2pp diagonal (the preconditioner of the padded rank
-    view)."""
-    s = scnsim_case(pkg or port_package(), refine=refine, device=device,
-                    bench_precision=bench_precision, coupled_stencil=False)
-    s._pressure_mg = None
-    return s
+    """SCnsIM on the Turek cylinder (scnsim_case) with its default
+    branches: the coupled stencil outer apply and Tpp pieces, and the
+    Galerkin V-cycle on B2pp from refine 1 up."""
+    return scnsim_case(pkg or port_package(), refine=refine, device=device,
+                       bench_precision=bench_precision)
 
 
-def supg_newton(mesh, device, refine=1, bench_precision=False):
-    """One Newton iteration of scnsim(refine): sharded_supg_newton, or
-    (mesh None) the solver's own _newton_iter_impl."""
+def supg_newton(mesh, device, refine=1, bench_precision=False,
+                element=False):
+    """One Newton iteration of scnsim(refine) without its V-cycle (the
+    JAX dry run's SCnsIM has none, and the padded Newton refuses it;
+    supg_shard_newton runs it): sharded_supg_newton, or (mesh None) the
+    solver's own _newton_iter_impl on the coupled stencil, which the
+    padded Newton replaces with the element blocks (the same operator;
+    parallel/shard.py::_padded_newton).  element: a check of the element
+    branch, both runs without the coupled stencil."""
     s = scnsim(refine, device, bench_precision)
+    s._pressure_mg = None
+    if element:
+        s._sys_stencil = None
     args = supg_args(s)
     if mesh is None:
         du, rn, its, _ = s._newton_iter_impl(
@@ -274,7 +318,210 @@ def supg_newton(mesh, device, refine=1, bench_precision=False):
     newton = sharded_supg_newton(s, mesh)
     du, rn, its, _ = newton(*args)
     return dict(du=du, res_norm=rn, iters=its, dofs=s.n_dofs, steps=1,
-                tables=[_tables("fluid", newton.tables)])
+                tables=[_tables("fluid", newton.tables)],
+                pieces=newton.pieces, lengths=dict(newton.lengths))
+
+
+def supg_shard_newton(mesh, device, refine=1):
+    """shard_fluid_solver on scnsim(refine) with its default branches
+    (coupled stencil, Galerkin V-cycle on the gathered B2pp blocks): one
+    Newton iteration through the solver's own _newton_iter_impl."""
+    s = scnsim(refine, device)
+    args = supg_args(s)
+    tables = []
+    if mesh is not None:
+        shard_fluid_solver(s, mesh)
+        tables.append(_fluid_tables(s))
+    du, rn, its, _ = s._newton_iter_impl(*args, s.zero_constraints,
+                                         s.u_constraints, s.p_constraints)
+    return dict(du=du, res_norm=rn, iters=its, tables=tables,
+                dofs=s.n_dofs, steps=1)
+
+
+# The preconditioner branches under shard_fluid_solver: name -> (solver,
+# knobs set before setup, the V-cycle attached after it, the branch key
+# that the solver records).  "insim": the cavity refined 3 times;
+# "insim_hanging": the cavity refined twice and its lower left quarter
+# once more (hanging nodes); "scnsim": SCnsIM on the cylinder at refine 1
+# (scnsim_case, the Galerkin V-cycle attached unless the entry says
+# otherwise).  V-cycles: "velocity" (Galerkin), "pressure" (frozen),
+# "pressure_galerkin", "none" (detached).
+BRANCH_CASES = {
+    "dense": ("insim", dict(dense_precond=True), None, ("dense", "cg")),
+    "dense_bf16": ("insim", dict(dense_precond=True, dense_a_bf16=True),
+                   None, ("dense", "cg")),
+    "stencil": ("insim", {}, None, ("stencil", "cg")),
+    "stencil_flat": ("insim_hanging", {}, None, ("stencil_flat", "cg")),
+    "element": ("insim", dict(a_stencil=False), None, ("element", "cg")),
+    "velocity_mg": ("insim", {}, "velocity", ("velocity_mg", "cg")),
+    "cg+vcycle": ("insim", {}, "pressure_galerkin", ("stencil",
+                                                     "cg+vcycle")),
+    "vcycle": ("insim", dict(mg_direct=True), "pressure",
+               ("stencil", "vcycle")),
+    "supg_stencil": ("scnsim", {}, None, ("stencil", "stencil",
+                                          "galerkin")),
+    "supg_galerkin": ("scnsim", dict(coupled_stencil=False), None,
+                      ("element", "nodeblock", "galerkin")),
+    "supg_dense": ("scnsim", dict(coupled_stencil=False, dense_precond=True),
+                   "none", ("element", "dense", "diag")),
+    "supg_vcycle": ("scnsim", {}, "pressure", ("stencil", "stencil",
+                                               "vcycle")),
+    # no velocity node table (the flat rectangular Tpp pieces): the outer
+    # Taylor-Hood apply needs the table, so the case applies the
+    # preconditioner alone, in both packages
+    "supg_rect": ("scnsim", dict(coupled_stencil=False), None,
+                  ("element", "rect", "galerkin")),
+}
+
+
+def branch_solver(name, pkg=None, device=None):
+    """The set-up solver of BRANCH_CASES[name] in either package (pkg:
+    the classes of a package, default the port's)."""
+    pkg = pkg or port_package()
+    kind, knobs, vcycle, _ = BRANCH_CASES[name]
+    if kind == "scnsim":
+        s = scnsim_case(pkg, refine=1, device=device, bench_precision=False,
+                        **knobs)
+        meshes = cylinder_hierarchy(pkg.generators, 1)
+    else:
+        p = pkg.AllParameters(**fsi_disc.cavity_fields(4))
+        base = pkg.generators.hyper_cube(0.0, 1.0, dim=2)
+        meshes = [base.refine_global(k) for k in (1, 2, 3)]
+        if kind == "insim_hanging":
+            fine = meshes[1]
+            c = fine.cell_centers()
+            meshes = [fine.refine((c[:, 0] < 0.5) & (c[:, 1] < 0.5))]
+        p.global_refinements[0] = 0
+        s = pkg.InsIM(meshes[-1], p, **_kw(device))
+        for k, v in knobs.items():
+            setattr(s, k, v)
+        s.setup()
+    if vcycle == "velocity":
+        s.enable_velocity_mg(meshes)
+    elif vcycle in ("pressure", "pressure_galerkin"):
+        s.enable_pressure_mg(meshes, galerkin=vcycle == "pressure_galerkin")
+    elif vcycle == "none":
+        s._pressure_mg = None
+    if name == "supg_rect":
+        s.cell_nodes_u = None
+    s._setup_done = True
+    return s
+
+
+def branch_args(s, name):
+    """The Newton arguments of a branch case's solver."""
+    return supg_args(s) if BRANCH_CASES[name][0] == "scnsim" else \
+        newton_args(s)
+
+
+def rect_vector(s, seed=21):
+    """The seeded vector that the supg_rect case applies the
+    preconditioner to (zero on the fixed rows), as numpy."""
+    def host(t):
+        return t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+    fixed = np.concatenate([host(s.u_constraints.fixed),
+                            host(s.p_constraints.fixed)])
+    v = np.random.default_rng(seed).normal(size=s.n_dofs)
+    return np.where(fixed, 0.0, v)
+
+
+def branch_newton(mesh, device, name):
+    """BRANCH_CASES[name] through shard_fluid_solver over `mesh` (or
+    unsharded, mesh None): one Newton iteration through the solver's own
+    _newton_iter_impl (supg_rect: one preconditioner apply on the seeded
+    rect_vector, built from the Newton matrix at the first iteration).
+    Returns du (or the apply), res_norm, the outer FGMRES count, the
+    inner Krylov counts (krylov_iters) and the branches taken."""
+    s = branch_solver(name, device=device)
+    args = branch_args(s, name)
+    tables = []
+    if mesh is not None:
+        shard_fluid_solver(s, mesh)
+        tables.append(_fluid_tables(s))
+    out = dict(tables=tables, steps=1)
+    if name == "supg_rect":
+        fl = s.rank_view if mesh is not None else s
+        A_loc, rhs = fl._assemble(*args)
+        P = fl._make_preconditioner(A_loc, s.u_constraints, s.p_constraints)
+        v = torch.as_tensor(rect_vector(s), dtype=rhs.dtype, device=s.device)
+        du, its = P.stats(v)
+        rn = torch.linalg.vector_norm(s.zero_constraints.condense_rhs(
+            rhs)).item()
+    else:
+        du, rn, its, _ = s._newton_iter_impl(
+            *args, s.zero_constraints, s.u_constraints, s.p_constraints)
+    out.update(du=du, res_norm=rn, iters=its, krylov=dict(s.krylov_iters),
+               branches=list(s.precond_branches))
+    return out
+
+
+def leaflet_run(mesh, device, config="fsi_leaflet", n_steps=3,
+                extra_refine=2):
+    """The leaflet's bench configuration `config` (cases/fsi_leaflet.py:
+    "fsi_leaflet", path A, 17,249 dofs; "fsi_leaflet_r2", path B, 232,997
+    dofs at extra_refine 2) at full width through FSI.run's set-up and
+    time loop, the host first step and n_steps - 1 coupled steps, with
+    the fluid's Newton iterations sharded by shard_fluid_solver over
+    `mesh` (or unsharded).  It runs with torch's deterministic algorithms
+    (the card's index_add_ then sums in a fixed order, so two runs of the
+    same sums give the same bits).  Returns the state (fluid solution and
+    solid displacement), per step the ms, Newton and Krylov counts, the
+    branches, the peak device memory and, sharded, the collectives and
+    the rank's tables; "launches" counts the coupled steps alone."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _leaflet_run(mesh, device, config, n_steps, extra_refine)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _leaflet_run(mesh, device, config, n_steps, extra_refine):
+    fsi = leaflet_case(port_package(), config, n_steps=n_steps,
+                       extra_refine=extra_refine, **_kw(device))
+    fsi._setup_run()
+    fluid, solid = fsi.fluid, fsi.solid
+    tables = []
+    if mesh is not None:
+        shard_fluid_solver(fluid, mesh)
+        tables.append(_fluid_tables(fluid))
+        # the scalar tables the rank also launches at: the solid's and
+        # each pressure V-cycle level's
+        tables.append(_scalar_table("solid", solid.cell_dofs, solid.n_dofs))
+        mg = getattr(fluid, "_pressure_mg", None)
+        for lv in getattr(mg, "levels", ()):
+            tables.append(_scalar_table("scalar", lv.cell_dofs, lv.n))
+        coll_before = mesh.coll.counts()
+    marks = []
+    real = fsi.run_one_coupled_step
+
+    def coupled_step(*args, **kw):
+        if not marks:
+            marks.append(cuda_ops.launches.copy())
+        out = real(*args, **kw)
+        marks.append(cuda_ops.launches.copy())
+        return out
+    fsi.run_one_coupled_step = coupled_step
+    cuda = fluid.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fsi._time_loop(False)
+    log = fsi.step_log
+    out = dict(
+        state=torch.cat([fluid.present_solution,
+                         solid.current_displacement.reshape(-1)]),
+        dofs=fluid.n_dofs + solid.n_dofs, tables=tables, steps=len(log),
+        ms=[1e3 * e["seconds"] for e in log],
+        coupled=[bool(e["coupled"]) for e in log],
+        newton=[(int(e["solid_newton"]), int(e["fluid_newton"]))
+                for e in log],
+        krylov=[dict(e["krylov"]) for e in log],
+        branches=list(fluid.precond_branches),
+        peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+        launches=dict(marks[-1] - marks[0]) if marks else {})
+    if mesh is not None:
+        out.update(collective_counts(mesh, coll_before))
+    return out
 
 
 def _coupled_window(fsi, mesh):
@@ -314,9 +561,7 @@ def _coupled_window(fsi, mesh):
     if disp is None:
         disp = solid.get_current_solution()
     if hasattr(solid, "cell_dofs"):
-        tables.append(dict(kind="solid", cell_dofs=solid.cell_dofs.cpu()
-                           .numpy(), n_dofs=solid.n_dofs,
-                           n_cells=int(solid.cell_dofs.shape[0])))
+        tables.append(_scalar_table("solid", solid.cell_dofs, solid.n_dofs))
     return dict(state=torch.cat([fluid.present_solution, disp.reshape(-1)]),
                 newton=newton, tables=tables, steps=len(newton))
 
@@ -346,7 +591,6 @@ def check_mpi_fsi_window(mesh, device, n_steps=WINDOW_STEPS):
                                                    [1.0, 1.02])
     sm.vertices = sm.vertices + np.array([0.25, 0.0])
     fluid = pkg.SCnsIM(fm, p, device=device)
-    fluid.coupled_stencil = False
     solid = pkg.SharedHypoElasticity(sm, p, dx=0.2, hdx=1.3, device=device)
     return _coupled_window(pkg.MPIFSI(fluid, solid, p), mesh)
 
@@ -465,9 +709,7 @@ def check_solid_cg(mesh, device, n_steps=2, reps=(5, 3), size=(1.0, 0.6)):
     if mesh is not None:
         shard_solid_solver(solid, mesh)
         tb = solid._solve_A.tables
-        tables.append(dict(kind="solid", cell_dofs=tb.cell_dofs.cpu()
-                           .numpy(), n_dofs=tb.n_dofs,
-                           n_cells=tb.mesh.n_cells))
+        tables.append(_scalar_table("solid", tb.cell_dofs, tb.n_dofs))
     iters = beam_steps(solid, n_steps)
     return dict(u=solid.get_current_solution(), iters=iters, tables=tables,
                 steps=n_steps)
@@ -497,9 +739,7 @@ def element_cg(mesh, device, cells=64, seed=0):
         sharded = sharded_element_cg(shell.K_loc, shell.cell_dofs, cons,
                                      mesh)
         tb = sharded.tables
-        tables.append(dict(kind="solid", cell_dofs=tb.cell_dofs.cpu()
-                           .numpy(), n_dofs=tb.n_dofs,
-                           n_cells=tb.mesh.n_cells))
+        tables.append(_scalar_table("solid", tb.cell_dofs, tb.n_dofs))
 
         def solve():
             return sharded(b, atol)
@@ -522,7 +762,9 @@ def element_cg(mesh, device, cells=64, seed=0):
 # the function of each check: fn(mesh or None, device, **kw)
 CHECK_FNS = dict(element_newton="check_element_newton",
                  insim_newton="check_insim_newton", stepper="stepper_window",
-                 supg_newton="supg_newton", fsi_window="check_fsi_window",
+                 supg_newton="supg_newton",
+                 supg_shard_newton="supg_shard_newton",
+                 fsi_window="check_fsi_window",
                  mpi_fsi_window="check_mpi_fsi_window",
                  stencil_asolve="stencil_asolve", solid_cg="check_solid_cg")
 
@@ -608,7 +850,7 @@ def compare(name, sh, ref):
     """Hold one check's sharded result against the unsharded one with the
     JAX dry run's tolerances; returns {quantity: error relative to the
     scale}."""
-    if name in ("element_newton", "insim_newton", "supg_newton"):
+    if name in NEWTON_CHECKS:
         rn, rn_ref = float(sh["res_norm"]), float(ref["res_norm"])
         if not abs(rn - rn_ref) < 1e-10 * max(1.0, rn_ref):
             raise AssertionError(f"sharded {name}: res_norm {rn!r} against "

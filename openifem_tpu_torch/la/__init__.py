@@ -1,5 +1,8 @@
 from .constraints import Constraints
-from .operators import element_matvec, scatter_add
+from .operators import ElementOperator, element_matvec, scatter_add
 from .krylov import cg, fgmres
 
-__all__ = ["Constraints", "element_matvec", "scatter_add", "cg", "fgmres"]
+__all__ = [
+    "Constraints", "ElementOperator", "element_matvec", "scatter_add", "cg",
+    "fgmres",
+]

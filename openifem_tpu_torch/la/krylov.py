@@ -61,38 +61,44 @@ def cg(op: Callable, b, x0=None, M: Optional[Callable] = None,
     weights (1 owned / 0 duplicate) make the duplicated solve exactly
     equivalent to the flat one.
 
-    reduce: optional callable applied to every partial inner product (a
-    sum over the ranks holding pieces of the vectors, parallel/shard.py);
-    None for vectors held whole."""
+    reduce: optional callable returning the sum over the ranks holding
+    pieces of the vectors (parallel/shard.py) of a tensor of partial inner
+    products; the two of each iteration that need no other between them
+    go in one call.  None for vectors held whole."""
     x = torch.zeros_like(b) if x0 is None else x0
     if M is None:
         M = lambda v: v  # noqa: E731
     w = _weighted(weight, b.dtype)
     dot = _dot if w is None else \
         (lambda a, c: _dot(a, w * c.reshape(-1)))  # noqa: E731
-    if reduce is not None:
-        local_dot = dot
-        dot = lambda a, c: reduce(local_dot(a, c))  # noqa: E731
+
+    def dots(*pairs):
+        """The inner products of `pairs`, summed over the ranks in one
+        reduce (each sum is the one a reduce of it alone gives)."""
+        d = [dot(a, c) for a, c in pairs]
+        if reduce is None:
+            return d
+        return list(reduce(torch.stack(d)))
     atol = torch.as_tensor(atol, dtype=b.dtype, device=b.device)
 
     r = b - op(x)
     z = M(r)
     p = z
-    rz = dot(r, z)
+    rz, rr = dots((r, z), (r, r))
     k = 0
-    while k < maxiter and bool(torch.sqrt(dot(r, r)) > atol):
+    while k < maxiter and bool(torch.sqrt(rr) > atol):
         Ap = op(p)
-        pAp = dot(p, Ap)
+        (pAp,) = dots((p, Ap))
         alpha = torch.where(pAp != 0, rz / pAp, 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = dot(r, z)
+        rz_new, rr = dots((r, z), (r, r))
         beta = torch.where(rz != 0, rz_new / rz, 0.0)
         p = z + beta * p
         rz = rz_new
         k += 1
-    return SolveResult(x=x, iters=k, residual=float(torch.sqrt(dot(r, r))))
+    return SolveResult(x=x, iters=k, residual=float(torch.sqrt(rr)))
 
 
 def _back_substitute(H, g, k):

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..config import device as _device
+from ..config import index_dtype
 from . import cuda_ops
 
 
@@ -230,3 +232,20 @@ def element_matvec_rect_gather(A_loc, col_dofs, row_plan, x):
 def element_diag(A_loc, cell_dofs, n_dofs: int):
     return scatter_add(n_dofs, cell_dofs,
                        torch.diagonal(A_loc, dim1=1, dim2=2))
+
+
+class ElementOperator:
+    """Bundles a dof map with element_matvec and element_diag (the JAX
+    package's la/operators.py::ElementOperator): the blocks are given per
+    call."""
+
+    def __init__(self, cell_dofs, n_dofs: int, device=None):
+        self.cell_dofs = torch.as_tensor(cell_dofs, dtype=index_dtype,
+                                         device=_device(device))
+        self.n_dofs = n_dofs
+
+    def matvec(self, A_loc, x):
+        return element_matvec(A_loc, self.cell_dofs, self.n_dofs, x)
+
+    def diag(self, A_loc):
+        return element_diag(A_loc, self.cell_dofs, self.n_dofs)

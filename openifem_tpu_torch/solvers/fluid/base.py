@@ -25,13 +25,71 @@ from ...parameters import (AllParameters, component_flag_to_mask,
 from ...utils.timectl import Time
 
 
-def _whole(y):
-    """The cell reduce of a solver that holds every cell: the identity
-    (parallel/shard.py gives a rank its sum over the ranks)."""
-    return y
+class WholeLayout:
+    """How a solver's Newton iteration holds its cells and vectors: here
+    every cell and whole vectors, so every map is the identity and the
+    code runs as it would without one.  parallel/shard.py gives a rank
+    view its own layout (CellLayout: the rank's cells, whole vectors;
+    RangeLayout: the rank's cells and its range of every vector).
+
+      gather(x)       the whole vector from this rank's piece x;
+      scatter(y)      this rank's piece of the sum over the ranks of y,
+                      a vector that the rank's cells produced;
+      sum(t)          the sum over the ranks, whole on every rank;
+      piece(v)        this rank's range of a whole vector;
+      part(n)         the length of a piece of an n-vector;
+      reduce          the `reduce=` of la/krylov.py (None: whole vectors);
+      norm(v), dot(a, b)   over the whole vectors, on every rank;
+      gather_cells(t) t of every cell from the rank's cells (tables:
+                      `whole`, the solver that holds every cell, or None
+                      for the solver itself)."""
+    whole = None
+    reduce = None
+
+    def gather(self, x):
+        return x
+
+    def scatter(self, y):
+        return y
+
+    def sum(self, t):
+        return t
+
+    def piece(self, v):
+        return v
+
+    def part(self, n: int) -> int:
+        return n
+
+    def norm(self, v):
+        return torch.linalg.vector_norm(v)
+
+    def dot(self, a, b):
+        return torch.dot(a, b)
+
+    def gather_cells(self, t):
+        return t
+
+
+WHOLE = WholeLayout()
+
+
+def condensed(lay, cons, apply):
+    """cons.wrap_operator(apply) on `lay`'s pieces: gather, expand,
+    apply (the rank's cells), restrict, scatter; identity on the fixed
+    rows."""
+    fixed = lay.piece(cons.fixed)
+
+    def op(x):
+        y = lay.scatter(cons.restrict(apply(cons.expand(lay.gather(x)))))
+        return torch.where(fixed, x, y)
+    return op
 
 
 class FluidSolverBase:
+    # how the Newton iteration holds cells and vectors (WholeLayout); a
+    # rank view of parallel/shard.py carries its own
+    rank_layout = WHOLE
     # Newton-target-aware forcing for the outer FGMRES (see the JAX
     # package, openifem_tpu/solvers/fluid/base.py).  None keeps the
     # reference-parity tolerance atol = max(1e-8 ||rhs||, 1e-10); a pair

@@ -47,7 +47,7 @@ from ...la.operators import (element_diag, element_matvec,
                              element_matvec_rect,
                              element_matvec_taylor_hood,
                              element_matvec_u_to_p_nodeblock, scatter_add)
-from .base import FluidSolverBase, _whole
+from .base import FluidSolverBase, condensed
 
 CP_TO_CV = 1.4          # reference: source/mpi_scnsim.cpp:124
 ATM = 1013250.0         # reference: source/mpi_scnsim.cpp:125
@@ -375,10 +375,15 @@ class SUPGFluidSolver(FluidSolverBase):
         pvv_inv, b2pp_diag, x0), for tests and probes.
 
         On a rank's view of the solver (parallel/shard.py) the cell
-        tables are the rank's and `cell_reduce` is the sum over the ranks:
-        every element-block apply and diagonal then covers the rank's
-        cells and is reduced.  A solver has no cell_reduce."""
-        red = getattr(self, "cell_reduce", None) or _whole
+        tables are the rank's and `rank_layout` says how the vectors are
+        held (solvers/fluid/base.py::WholeLayout): every element-block
+        apply and diagonal covers the rank's cells and is summed over the
+        ranks into the rank's piece; the dense blocks, the stencil weights
+        and the Galerkin V-cycle come from every cell's blocks
+        (gather_cells), whole on every rank."""
+        lay = self.rank_layout
+        # every cell's tables (the solver itself, or a rank view's solver)
+        whole = lay.whole or self
         pdt = torch.float32 if self.mixed_precision_precond else A_loc.dtype
         A_loc = A_loc.to(pdt)
         nu = self.nu_loc
@@ -387,9 +392,11 @@ class SUPGFluidSolver(FluidSolverBase):
         Apv = A_loc[:, nu:, :nu]
         App = A_loc[:, nu:, nu:]
         cd_u, cd_p = self.cell_dofs_u, self.cell_dofs_p
+        n_ur = lay.part(self.n_u)
+        fixed_p = lay.piece(pcons.fixed)
 
-        diag_Avv = torch.where(ucons.fixed, 1.0,
-                               red(element_diag(Avv, cd_u, self.n_u)))
+        diag_Avv = torch.where(lay.piece(ucons.fixed), 1.0, lay.scatter(
+            element_diag(Avv, cd_u, self.n_u)))
         pvv_inv = torch.where(diag_Avv != 0, 1.0 / diag_Avv, 1.0)
 
         def Pvv_inverse(x):
@@ -399,7 +406,8 @@ class SUPGFluidSolver(FluidSolverBase):
         st = self._sys_stencil if branch == "stencil" else None
         if branch == "stencil":
             if sys_W is None:
-                sys_W = st.build_weights(self._sys_node_blocks(A_loc))
+                sys_W = st.build_weights(self._sys_node_blocks(
+                    lay.gather_cells(A_loc)))
             sys_W = tuple(w.to(pdt) for w in sys_W)
             d = self.dim
             # contiguous copies: the apply reshapes its weights, which
@@ -428,14 +436,16 @@ class SUPGFluidSolver(FluidSolverBase):
             op_App = pcons.wrap_operator(raw_App)
         elif branch == "rect":
             def apply_Avp(xp):
+                xp = lay.gather(xp)
                 xp = pcons.expand(xp) if pcons.any_hanging else xp
-                y = red(element_matvec_rect(Avp, cd_u, cd_p, self.n_u, xp))
-                return ucons.restrict(y)
+                y = element_matvec_rect(Avp, cd_u, cd_p, self.n_u, xp)
+                return lay.scatter(ucons.restrict(y))
 
             def apply_Apv(xu):
-                xu = ucons.expand(xu)
-                y = red(element_matvec_rect(Apv, cd_p, cd_u, self.n_p, xu))
-                return pcons.restrict(y) if pcons.any_hanging else y
+                xu = ucons.expand(lay.gather(xu))
+                y = element_matvec_rect(Apv, cd_p, cd_u, self.n_p, xu)
+                return lay.scatter(pcons.restrict(y) if pcons.any_hanging
+                                   else y)
         else:
             # node-block layout (also behind the dense branch, whose
             # closures replace these below)
@@ -449,37 +459,40 @@ class SUPGFluidSolver(FluidSolverBase):
             Apv_b = Apv.reshape(n_c, nlp, nlu, d)
 
             def apply_Avp(xp):
+                xp = lay.gather(xp)
                 xp = pcons.expand(xp) if pcons.any_hanging else xp
-                y = red(element_matvec_p_to_u_nodeblock(
-                    Avp_b, cn_u, cd_p, self.n_u // d, xp))
-                return ucons.restrict(y)
+                y = element_matvec_p_to_u_nodeblock(
+                    Avp_b, cn_u, cd_p, self.n_u // d, xp)
+                return lay.scatter(ucons.restrict(y))
 
             def apply_Apv(xu):
-                xu = ucons.expand(xu)
-                y = red(element_matvec_u_to_p_nodeblock(
-                    Apv_b, cn_u, cd_p, self.n_p, xu))
-                return pcons.restrict(y) if pcons.any_hanging else y
+                xu = ucons.expand(lay.gather(xu))
+                y = element_matvec_u_to_p_nodeblock(
+                    Apv_b, cn_u, cd_p, self.n_p, xu)
+                return lay.scatter(pcons.restrict(y) if pcons.any_hanging
+                                   else y)
 
         if st is None:
-            op_App = pcons.wrap_operator(
-                lambda x: red(element_matvec(App, cd_p, self.n_p, x)))
+            op_App = condensed(lay, pcons, lambda x: element_matvec(
+                App, cd_p, self.n_p, x))
 
         def Tpp(xp):
             y = op_App(xp) - apply_Apv(Pvv_inverse(apply_Avp(xp)))
-            return torch.where(pcons.fixed, xp, y)
+            return torch.where(fixed_p, xp, y)
 
         # Jacobi approximation of B2pp = App - Apv rowsum(|Avv|)^-1 Avp:
         # cell-local contribution to the product's diagonal (the reference
         # builds the full matrix and takes ILU(0))
         rowsum_loc = torch.abs(Avv).sum(dim=2)
-        rowsum = red(scatter_add(self.n_u, cd_u, rowsum_loc))
+        # every dof's row sum: the cell-local products read it through cd_u
+        rowsum = lay.sum(scatter_add(self.n_u, cd_u, rowsum_loc))
         rinv = torch.where(rowsum != 0, 1.0 / rowsum, 1.0)
         rinv_loc = rinv[cd_u]
         prod_diag_loc = es("cnk,ck,ckn->cn", Apv, rinv_loc, Avp)
         diag_App = element_diag(App, cd_p, self.n_p)
-        b2pp_diag = red(diag_App - scatter_add(self.n_p, cd_p,
-                                               prod_diag_loc))
-        b2pp_diag = torch.where(pcons.fixed, 1.0, b2pp_diag)
+        b2pp_diag = lay.scatter(diag_App - scatter_add(self.n_p, cd_p,
+                                                       prod_diag_loc))
+        b2pp_diag = torch.where(fixed_p, 1.0, b2pp_diag)
         b2pp_inv = torch.where(torch.abs(b2pp_diag) > 1e-300,
                                1.0 / b2pp_diag, 1.0)
         if branch == "dense":
@@ -490,16 +503,22 @@ class SUPGFluidSolver(FluidSolverBase):
             # mirrors the reference's explicit B2pp assembly
             # (source/mpi_supg_solver.cpp:56-133); each Tpp matvec becomes
             # one small GEMV instead of three element gather/scatters.
+            # Built from every cell's blocks, whole on every rank.
             from ...la.dense import condensed_dense, gemv, hanging_tables
             uht = hanging_tables(self.u_constraints)
             pht = hanging_tables(self.p_constraints)
-            Avp_d = condensed_dense(Avp, cd_u, cd_p, self.n_u, self.n_p,
-                                    ucons, pcons, uht, pht)
-            Apv_d = condensed_dense(Apv, cd_p, cd_u, self.n_p, self.n_u,
-                                    pcons, ucons, pht, uht)
-            App_d = condensed_dense(App, cd_p, cd_p, self.n_p, self.n_p,
-                                    pcons, pcons, pht, pht,
-                                    unit_fixed_diag=True)
+            A_all = lay.gather_cells(A_loc)
+            wcd_u, wcd_p = whole.cell_dofs_u, whole.cell_dofs_p
+            Avp_d = condensed_dense(A_all[:, :nu, nu:], wcd_u, wcd_p,
+                                    self.n_u, self.n_p, ucons, pcons, uht,
+                                    pht)
+            Apv_d = condensed_dense(A_all[:, nu:, :nu], wcd_p, wcd_u,
+                                    self.n_p, self.n_u, pcons, ucons, pht,
+                                    uht)
+            App_d = condensed_dense(A_all[:, nu:, nu:], wcd_p, wcd_p,
+                                    self.n_p, self.n_p, pcons, pcons, pht,
+                                    pht, unit_fixed_diag=True)
+            del A_all
             apply_Avp = lambda xp: gemv(Avp_d, xp)      # noqa: E731
             apply_Apv = lambda xu: gemv(Apv_d, xu)      # noqa: E731
             op_App = lambda x: gemv(App_d, x)           # noqa: E731
@@ -518,7 +537,7 @@ class SUPGFluidSolver(FluidSolverBase):
             fixp = pcons.fixed[cd_p]
             b2pp_loc = torch.where(fixp[:, None, :] | fixp[:, :, None],
                                    0.0, b2pp_loc)
-            tpp_M = mg.build(b2pp_loc)
+            tpp_M = mg.build(lay.gather_cells(b2pp_loc))
         elif m_branch == "vcycle":
             tpp_M = mg.vcycle
         else:
@@ -529,8 +548,8 @@ class SUPGFluidSolver(FluidSolverBase):
             # reference: source/mpi_supg_solver.cpp:163-171
             c = ptmp
             Sc = Tpp(c)
-            denom = torch.dot(Sc, c)
-            alpha = torch.where(denom != 0, torch.dot(ptmp, c) / denom, 0.0)
+            denom = lay.dot(Sc, c)
+            alpha = torch.where(denom != 0, lay.dot(ptmp, c) / denom, 0.0)
             return alpha * c
 
         counts = self.krylov_iters
@@ -538,13 +557,14 @@ class SUPGFluidSolver(FluidSolverBase):
         def _apply(v, with_stats):
             out_dtype = v.dtype
             v = v.to(pdt)
-            vu, vp = v[:self.n_u], v[self.n_u:]
+            vu, vp = v[:n_ur], v[n_ur:]
             ptmp = vp - apply_Apv(Pvv_inverse(vu))
             x0 = initial_guess(ptmp)
-            atol = 1e-3 * torch.linalg.vector_norm(ptmp).item()
+            atol = 1e-3 * lay.norm(ptmp).item()
             tpp = fgmres(Tpp, ptmp, x0=x0, M=tpp_M, atol=atol,
                          restart=self.tpp_restart,
-                         max_restarts=self.tpp_max_restarts)
+                         max_restarts=self.tpp_max_restarts,
+                         reduce=lay.reduce)
             dst_p = tpp.x
             dst_u = Pvv_inverse(vu) - Pvv_inverse(apply_Avp(dst_p))
             out = torch.cat([dst_u, dst_p]).to(out_dtype)
@@ -583,26 +603,26 @@ class SUPGFluidSolver(FluidSolverBase):
         sys_W = None
         mdt = torch.float32 if self.f32_matrix else A_loc.dtype
         A_op = A_loc.to(mdt)
+        # a rank's cells only when parallel/shard.py shards the solver
+        lay = self.rank_layout
         if st is not None:
             # coupled-node stencil outer apply: one (dim+1)-component
-            # stencil tensor built per Newton iteration, shared with the
-            # Tpp preconditioner
-            sys_W = st.build_weights(self._sys_node_blocks(A_op))
+            # stencil tensor built per Newton iteration from every cell's
+            # blocks, shared with the Tpp preconditioner
+            sys_W = st.build_weights(self._sys_node_blocks(
+                lay.gather_cells(A_op)))
 
             def apply_A(x):
                 y = self._nodal_to_sys(
                     st.flat_matvec(sys_W, self._sys_to_nodal(x.to(mdt))))
                 return y.to(x.dtype)
         else:
-            # a rank's cells only when parallel/shard.py shards the solver
-            red = getattr(self, "cell_reduce", None) or _whole
-
             def apply_A(x):
                 y = element_matvec_taylor_hood(
                     A_op, self.cell_nodes_u, self.cell_dofs_p, nlu,
                     self.dim, self.n_u, self.n_p, x.to(mdt),
                     cell_dofs=self.cell_dofs)
-                return red(y).to(x.dtype)
+                return lay.scatter(y).to(x.dtype)
         op = cons.wrap_operator(apply_A)
         precond = self._make_preconditioner(A_loc, ucons, pcons,
                                             sys_W=sys_W)

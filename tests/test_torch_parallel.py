@@ -12,10 +12,11 @@ work.  Tolerances:
   iteration: 1e-10 absolute against the unsharded runs of both packages;
 - the sharded element CG (the beam, 2 steps; the long beam, 3 steps):
   1e-10 of the scale against the port unsharded and the JAX sharded;
-- the padded InsIM and SCnsIM Newton iterations: res_norm 1e-10, du 1e-5
-  of the scale against the JAX sharded ones, FGMRES counts within 1; with
-  preconditioner knobs set on the solver (KNOBS), the same against the
-  port's unsharded iteration with equal counts;
+- the padded InsIM and SCnsIM Newton iterations (every Krylov vector
+  range-sharded: a quarter of its padded block on each rank): res_norm
+  1e-10, du 1e-5 of the scale against the JAX sharded ones, FGMRES counts
+  within 1; with preconditioner knobs set on the solver (KNOBS), the same
+  against the port's unsharded iteration with equal counts;
 - the sharded stepper (the cavity and the channel, 3 steps): 1e-5 of the
   scale, equal largest Newton count;
 - the plane-sharded stencil: the apply 1e-12, the A-solve 1e-8 of the
@@ -25,8 +26,9 @@ work.  Tolerances:
 
 Also: la/krylov.py with reduce=None and with an identity reduce gives
 today's bits; the collectives' halos are zero at the edge ranks; a rank
-that raises makes spawn_ranks raise; sharding refuses the dense and
-multigrid preconditioners.
+that raises makes spawn_ranks raise; the padded Newton refuses the dense
+and multigrid preconditioners (shard_fluid_solver runs them:
+tests/test_torch_parallel_branches.py).
 """
 
 import threading
@@ -223,14 +225,17 @@ def test_padded_newton_keeps_the_solver_knobs(port):
 @pytest.mark.parametrize("knob,value", [
     ("dense_precond", True), ("_pressure_mg", object()),
     ("_velocity_mg", object())])
-@pytest.mark.parametrize("fn", ["sharded_insim_newton", "shard_fluid_solver"])
+@pytest.mark.parametrize("fn", ["sharded_insim_newton"])
 def test_sharding_refuses_whole_cell_preconditioners(fn, knob, value):
-    """The dense and multigrid preconditioners need every cell's block:
-    both ways of sharding a fluid refuse them before touching the mesh."""
+    """The dense and multigrid preconditioners build their operator from
+    every cell's block: the range-sharded padded Newton refuses them
+    before touching the mesh and names shard_fluid_solver, which shards
+    them (tests/test_torch_parallel_branches.py)."""
     from openifem_tpu_torch import parallel
     s = entry.cavity(device="cpu")
     setattr(s, knob, value)
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(NotImplementedError,
+                       match=f"{knob}.*shard_fluid_solver"):
         getattr(parallel, fn)(s, None)
 
 
@@ -243,6 +248,24 @@ def test_sharded_stepper_matches_jax(runs, port, name):
     # both hold the same sharded layout: 4 ranks, per-rank tables
     (tables,) = got["tables"]
     assert tables["n_cells"] * N_RANKS >= 64
+
+
+@pytest.mark.parametrize("name", ["insim_newton", "supg_newton", "stepper",
+                                  "pipe"])
+def test_padded_newton_range_shards_its_vectors(runs, name):
+    """Every Krylov vector of the padded Newton holds a quarter of its
+    padded block on each of the four ranks: the outer [u_r | p_r] vector
+    n_pad / 4 entries, the preconditioner's u and p vectors n_u_pad / 4
+    and n_p_pad / 4; every vector that an operator was given is one of
+    these pieces, and none is whole."""
+    for rank_out in runs[0]:
+        got = rank_out[name]
+        pc = got["pieces"]
+        assert pc["outer"] * N_RANKS == pc["n_pad"]
+        assert pc["u"] * N_RANKS == pc["n_u_pad"]
+        assert pc["p"] * N_RANKS == pc["n_p_pad"]
+        assert set(got["lengths"]) == {pc["outer"], pc["u"], pc["p"]}
+        assert min(got["lengths"].values()) > 0
 
 
 def test_sharded_stencil_matches_jax(runs, port):
