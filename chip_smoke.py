@@ -12,9 +12,9 @@ and 1 always run):
   2. every kernel layout against its plain PyTorch version on the card, at
      the fsi_leaflet shapes (the element path's and path A's), in f64
      (<= 1e-12) and f32 (<= 1e-5); repeated launches bitwise equal; per
-     shape the device time (CUDA events around 200 back-to-back launches
+     shape the device time (CUDA events around 100 back-to-back launches
      queued behind a sleep kernel, so the host's enqueue rate is not
-     timed), the host time (500 enqueues), the bound (bytes or operations
+     timed), the host time (200 enqueues), the bound (bytes or operations
      over the card's peak) and the time of a cuSPARSE CSR product of the
      same assembled blocks (timed only; the port never calls it);
   3. the coarse leaflet (h = 0.1, refinements [0, 1]) on the element-
@@ -29,7 +29,7 @@ and 1 always run):
      the stencil + pressure V-cycle + mg_direct on a uniform channel
      (h = 0.1 refined once, 2 levels);
   6. path A, fsi_leaflet with the bench knobs (dense condensed
-     preconditioner, bf16 A block, f32 Jacobian), 17,249 dofs, 10 steps:
+     preconditioner, bf16 A block, f32 Jacobian), 17,249 dofs, 8 steps:
      finite, 1e-4 < max d_x < 0.5, the dense branch taken, the Taylor-Hood
      layout launched in f32 and no element layout in the preconditioner;
   7. path B, fsi_leaflet_r2 with the bench knobs (stencil patch layout,
@@ -45,8 +45,8 @@ and 1 always run):
      and a 3-step window of InsIM's stepper; InsIMEX for 3 steps: within
      rtol 1e-6, equal Newton counts;
   9. the cylinder as the JAX bench runs it: "r3" (54,192 dofs: host first
-     step, a 2-step warm-up window, 5 timed steps in one stepper call) and
-     "r4" (214,368 dofs: no host first step, 1 warm-up step, 3 timed
+     step, a 1-step warm-up window, 3 timed steps in one stepper call) and
+     "r4" (214,368 dofs: no host first step, 1 warm-up step, 2 timed
      steps, one call each), with the bench knobs: every timed step
      converged, finite fields, the z-order stencil patches and the
      configuration's preconditioner branch taken;
@@ -54,7 +54,7 @@ and 1 always run):
      element_matvec_rect launched on its path.
  11. the stabilised fluid family, coarse, CUDA vs CPU (rtol 1e-6, equal
      Newton or sweep counts, f64): SCnsIM on the cylinder at refine 1
-     (1,284 dofs) for 2 steps on the coupled-stencil branch and 1 step
+     (1,284 dofs) for 1 step on the coupled-stencil branch and 1 step
      (5 Newton iterations) on the element, dense and hybrid (stencil outer
      apply, dense Tpp) branches; SUPGInsIM and SerialSCnsIM there for 1
      step; SCnsEX on the acoustic duct refined once (255 dofs), 6 steps
@@ -63,13 +63,13 @@ and 1 always run):
      preconditioner, Galerkin V-cycle on the B2pp blocks): host first
      step, then warm-up and timed steps through make_on_device_stepper
      with the BC table (--scnsim-depth warm,timed,element; default 0,1,1,
-     the JAX bench's depth is 2,4,2); then the state carried into a solver
-     with coupled_stencil = False for its timed steps, so the
+     the JAX bench's depth is 2,4,2); then the state carried into a
+     solver with coupled_stencil = False for its timed steps, so the
      Taylor-Hood, p->u, u->p and scalar layouts carry a SUPG step at full
      size: every timed step converged, finite fields, the branch taken;
- 13. SCnsEX on the acoustic duct (3,315 dofs) for 100 steps through
+ 13. SCnsEX on the acoustic duct (3,315 dofs) for 50 steps through
      run_on_device, then the duct refined twice more (16,384 cells, 50,115
-     dofs, the time step cut by 4) for 100 steps: converged sweeps, finite
+     dofs, the time step cut by 4) for 50 steps: converged sweeps, finite
      fields, 0 < vmax < 7, element_matvec launched at 8 x 8 and 4 x 4.
  14. the MPI-semantics coupler, coarse, CUDA vs CPU (f64, rtol 1e-6, equal
      Newton and contact-retry counts per step): the 2-D block
@@ -109,15 +109,18 @@ and 1 always run):
  18. AMR, checkpoints and the flat shell, coarse, CUDA vs CPU (f64): the
      coarse leaflet (h = 0.1, refinements [0, 1], element branch) through
      FSI.run with interface refinement and a save every 2 steps, 4 steps
-     (equal meshes and Newton counts, 1e-6), then FSI.resume on the card
-     from the step-2 checkpoints to step 4 against the uninterrupted card
-     run (1e-10); the disc in the cavity (cases/fsi_disc.py), whose
-     interface refinement changes its mesh, the same way (4 steps, a save
-     every 2, resumed from step 2); the cylinder at refine 1 through
-     InsIM.run with Kelly AMR (levels 1..3) after every step, 2 steps
-     (equal meshes and Newton counts, 1e-6); the 2-D MPI block (body
+     (equal meshes and Newton counts, 1e-6), then on the card a run cut
+     after step 2 and FSI.resume from its checkpoints to step 4, both
+     inside the scatter guard, against the uninterrupted card run (state
+     and step-4 checkpoints equal to the bit, equal per-step counts); the
+     disc in the cavity (cases/fsi_disc.py), whose interface refinement
+     changes its mesh, the same way (4 steps, a save every 2, resumed
+     from step 2); the cylinder at refine 1 through InsIM.run with Kelly
+     AMR (levels 1..3) after every step, 2 steps (equal meshes and Newton
+     counts, 1e-6; run again under the guard); the 2-D MPI block (body
      force) through MPIFSI.run saved at step 2 and restarted to step 4
-     (1e-6 against the CPU, 2e-10 against the uninterrupted card run);
+     (1e-6 against the CPU; cut and restarted under the guard, equal to
+     the bit and with equal counts against the uninterrupted card run);
      the shell plate (16 x 16) and bar (16 x 4): 1e-10, CG counts at most 1
      apart, the closed forms;
  19. the adaptive leaflet at full width (fsi_leaflet with the bench
@@ -130,11 +133,12 @@ and 1 always run):
      and seconds; peak memory; every step converged, finite, 1e-4 < max
      d_x < 0.5, plans built only in the step after a refinement that
      changed the mesh; then FSI.resume on the card from the step-5
-     checkpoints (load seconds, difference to the uninterrupted run
-     printed); the shell plate at 64 x 64 cells (21,125 dofs): CG
-     iterations and solve ms, within 4 % of Kirchhoff.
+     checkpoints (load seconds; the state equal to the uninterrupted
+     run's to the bit, the resumed steps' counts equal); the shell
+     plate at 64 x 64 cells (21,125 dofs): CG iterations and solve ms,
+     within 4 % of Kirchhoff.
  20. the sharded paths (parallel/shard.py), coarse, f64:
-     entry.dryrun_multichip with one rank (NCCL; 3-step windows, the JAX
+     entry.dryrun_multichip with one rank (NCCL; 2-step windows, the JAX
      dry run's 5 on the CPU) and with 4 ranks sharing the card (gloo,
      2-step windows;
      the route of each collective printed), every solver with its default
@@ -166,13 +170,20 @@ and 1 always run):
      coupled steps and (b) path B (fsi_leaflet_r2, 232,997 dofs, stencil
      A-solve, one V-cycle as Sm^-1) through the host first step and 1
      coupled step, the fluid under shard_fluid_solver at world size 1
-     (NCCL) against the unsharded run, both with torch's deterministic
-     algorithms: state within 1e-6, equal Newton and Krylov counts, ms
-     per coupled step both ways, the collectives; (c) the range-sharded
+     (NCCL) against the unsharded run: state equal to the bit, equal
+     Newton and Krylov counts, and path A's unsharded steps equal to the
+     first 3 of phase 6's Newton and Krylov counts; ms per coupled step
+     both ways, the collectives; (c) the range-sharded
      stepper on the cavity at refine 4, a 1-step window, with 4 ranks
      sharing the card (gloo) and with 1 (NCCL), against
      make_on_device_stepper (1e-5, equal Newton): each rank's vector
      lengths, Krylov basis bytes and peak memory.
+Phases 3, 5, 8, 11, 14, 16 and 18 run each CUDA run a second time inside
+la/operators.py's AtomicScatterGuard (an atomic floating-point
+scatter-add on a CUDA tensor raises there) and require the same bits
+and the same per-step Newton and Krylov counts (phase 18's saved runs
+repeat as a run cut at its first save plus the restart from it): the
+port sums every scatter on the card through plans in a fixed order.
 Phases 8-22 then hold every kernel shape they launched against its plain
 version as phase 2 does, at the path's own tables.  Phase 2 also checks
 the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p 8 x 24) in
@@ -227,7 +238,7 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 # back-to-back launches timed with CUDA events, enqueues timed on the host
-DEVICE_REPS, HOST_REPS = 200, 500
+DEVICE_REPS, HOST_REPS = 100, 200
 # dofs (fluid + solid) of each configuration at full size (h = 0.05)
 FULL_DOFS = {"element": 17249, "fsi_leaflet": 17249,
              "fsi_leaflet_r2": 232997}
@@ -235,10 +246,11 @@ FULL_H = 0.05
 # the cylinder configurations as bench_cylinder runs them: dofs, whether
 # the host path takes the first step, warm-up steps, timed steps, whether
 # the timed steps are one stepper call, and the (A-solve, Sm-solve) branch
+# (the steps cut to fit the script's time limit)
 CYLINDER_RUNS = {
-    "r3": dict(dofs=54192, host_first=True, warm=2, timed=5, one_call=True,
+    "r3": dict(dofs=54192, host_first=True, warm=1, timed=3, one_call=True,
                branch=("stencil", "cg+vcycle")),
-    "r4": dict(dofs=214368, host_first=False, warm=1, timed=3,
+    "r4": dict(dofs=214368, host_first=False, warm=1, timed=2,
                one_call=False, branch=("stencil", "vcycle")),
 }
 IMEX_REFINE, IMEX_DOFS, IMEX_STEPS = 3, 54192, 5
@@ -250,7 +262,8 @@ SCNSIM_DOFS = 18384
 # minute (about 10,000 Tpp GMRES iterations), so the default is the least
 # that drives both branches; --scnsim-depth 2,4,2 is the JAX bench's depth
 SCNSIM_WARM, SCNSIM_TIMED, SCNSIM_ELEMENT_TIMED = 0, 1, 1
-DUCT_STEPS = 100
+# steps of each duct run (phase 13), cut to fit the script's time limit
+DUCT_STEPS = 50
 DUCT_RUNS = {"duct": dict(extra_refine=0, dofs=3315, cells=1024),
              "duct_fine": dict(extra_refine=2, dofs=50115, cells=16384)}
 # fsi-wall-3D: dofs at full resolution; coupled steps after the host first
@@ -264,26 +277,21 @@ VOCAL_WARM, VOCAL_TIMED = 1, 3
 REFERENCE_DOF_STEPS = 1505
 # steps of the adaptive leaflet (phase 19): the default and the least
 AMR_STEPS = 10
-# the MPI block's card restart against the uninterrupted card run: the
-# card's index_add_ atomics round differently from run to run; restarts
-# and repeated runs of the block differed from a first run by 1.1e-11 to
-# 7.9e-11 on an H100 80GB HBM3 at 700 W
-BLOCK_RESTART_TOL = 2e-10
-# depth of earlier phases, cut to keep the script inside its time limit
-# once phases 20-21 came (PERF.md): steps of the coarse CUDA-vs-CPU
-# leaflets (phases 3 and 5; 3 before), of path B (phase 7; 4 before) and of
-# the Kelly cylinder (phase 18; 3 before)
+# depth of the phases, cut to keep the script inside its time limit
+# (PERF.md): steps of the coarse CUDA-vs-CPU leaflets (phases 3 and 5), of
+# path A (phase 6), of path B (phase 7), of the Kelly cylinder (phase 18)
+# and of the coarse MPI-coupler and vocal-fold runs (phases 14 and 16)
 COARSE_LEAFLET_STEPS = 2
+PATH_A_STEPS = 8
 PATH_B_STEPS = 3
 KELLY_STEPS = 2
-# ... and of the coarse MPI-coupler and vocal-fold runs (phases 14 and 16;
-# 3 before)
 COARSE_MPI_STEPS = COARSE_VOCAL_STEPS = 2
-# phase 20: window steps of the dry run with one rank (the JAX dry run's
-# 5, which the CPU tests run, cut to 3 when phase 22 came) and with 4
-# ranks sharing the card; phase 21 (a): the cavity's refinements (6: 64 x
-# 64 cells, 37,507 dofs) and window steps (2 before phase 22)
-DRYRUN1_STEPS, DRYRUN4_STEPS = 3, 2
+# phase 20: window steps of the dry run with one rank and with 4 ranks
+# sharing the card (the JAX dry run's 5 runs in the CPU tests; 2 is the
+# least that runs the fused coupled step after the host first step);
+# phase 21 (a): the cavity's refinements (6: 64 x 64 cells, 37,507 dofs)
+# and window steps
+DRYRUN1_STEPS, DRYRUN4_STEPS = 2, 2
 CAVITY_REFINE, CAVITY_STEPS = 6, 1
 # phase 22: steps of the sharded paths A and B (the host first step
 # included), and the cavity's refinements and window steps of the
@@ -628,7 +636,66 @@ def _counts(fsi):
     return [(s["solid_newton"], s["fluid_newton"]) for s in fsi.step_log]
 
 
-def _cuda_vs_cpu(label, h, refinements, n_steps, config, **kw):
+def _log_counts(fsi):
+    """Every count of each step of an FSI run: path, Newton, retries and
+    Krylov (the step log without its seconds)."""
+    return [{k: v for k, v in s.items() if k != "seconds"}
+            for s in fsi.step_log]
+
+
+def _fsi_state(fsi):
+    return (fsi.fluid.present_solution, fsi.solid.current_displacement)
+
+
+def _same_checkpoints(a, b):
+    """Whether directories a and b hold checkpoints of the same names
+    with equal arrays, to the bit."""
+    import glob
+
+    import numpy as np
+    names = sorted(os.path.basename(f)
+                   for f in glob.glob(os.path.join(a, "*.checkpoint.npz")))
+    if not names or names != sorted(os.path.basename(f) for f in glob.glob(
+            os.path.join(b, "*.checkpoint.npz"))):
+        return False
+    for name in names:
+        with np.load(os.path.join(a, name)) as x, \
+                np.load(os.path.join(b, name)) as y:
+            if sorted(x.files) != sorted(y.files) or not all(
+                    np.array_equal(x[k], y[k]) for k in x.files):
+                return False
+    return True
+
+
+def _repeat(torch, label, what, first, state, counts, run, *args):
+    """run(*args) on the card a second time inside la/operators.py's
+    AtomicScatterGuard (an atomic floating-point scatter-add on a CUDA
+    tensor raises there): its state (the tensors of state(run)) equal to
+    the first run's to the bit and its per-step counts (counts(run))
+    equal.  Returns the second run's result."""
+    from openifem_tpu_torch.la.operators import AtomicScatterGuard
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # its own directory: the run loops restart from checkpoints they find
+    where = "".join(c if c.isalnum() else "_" for c in f"{label} {what}")
+    with _InDir(f"repeat_{where}"), AtomicScatterGuard():
+        again = run(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    a, b = state(first), state(again)
+    bits = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    same = counts(first) == counts(again)
+    ok = bits and same
+    say(f"{label}: {what} again on the card under the scatter guard: state "
+        f"equal to the bit {bits}, per-step counts equal {same} "
+        f"({str(counts(again))[:300]}); {seconds:.2f} s "
+        f"{'ok' if ok else 'FAILED'}")
+    _require(label, ok, f"{what}: a repeated card run differs from the "
+             "first")
+    return again
+
+
+def _cuda_vs_cpu(torch, label, h, refinements, n_steps, config, **kw):
     gpu, t_gpu = _run_leaflet("cuda", h, refinements, n_steps, config, **kw)
     cpu, t_cpu = _run_leaflet("cpu", h, refinements, n_steps, config, **kw)
     errs = {}
@@ -651,19 +718,23 @@ def _cuda_vs_cpu(label, h, refinements, n_steps, config, **kw):
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError(f"{label}: CUDA and CPU runs disagree")
+    _repeat(torch, label.split(":")[0], f"{config}, the CUDA run", gpu,
+            _fsi_state, _log_counts, lambda: _run_leaflet(
+                "cuda", h, refinements, n_steps, config, **kw)[0])
 
 
 def phase3_coarse(torch):
-    _cuda_vs_cpu("phase 3: coarse leaflet, element branch,", 0.1, (0, 1),
-                 COARSE_LEAFLET_STEPS, "element")
+    _cuda_vs_cpu(torch, "phase 3: coarse leaflet, element branch,", 0.1,
+                 (0, 1), COARSE_LEAFLET_STEPS, "element")
 
 
 def phase5_coarse_bench(torch):
-    _cuda_vs_cpu("phase 5: coarse leaflet, dense preconditioner (f64),",
+    _cuda_vs_cpu(torch,
+                 "phase 5: coarse leaflet, dense preconditioner (f64),",
                  0.1, (0, 1), COARSE_LEAFLET_STEPS, "fsi_leaflet",
                  bench_precision=False)
-    _cuda_vs_cpu("phase 5: coarse r2-style leaflet, stencil + V-cycle "
-                 "(f64),", 0.1, (0, 1), COARSE_LEAFLET_STEPS,
+    _cuda_vs_cpu(torch, "phase 5: coarse r2-style leaflet, stencil + "
+                 "V-cycle (f64),", 0.1, (0, 1), COARSE_LEAFLET_STEPS,
                  "fsi_leaflet_r2", extra_refine=1, bench_precision=False)
 
 
@@ -768,8 +839,12 @@ def phase4_full(torch):
 
 
 def phase6_path_a(torch):
+    """Path A at full size; returns its path and, per step, the (solid,
+    fluid) Newton and the Krylov counts, which phase 22 holds its own
+    unsharded run of path A to."""
     label = "phase 6"
-    fsi, launches, per_step = _full_run(torch, label, "fsi_leaflet", 10)
+    fsi, launches, per_step = _full_run(torch, label, "fsi_leaflet",
+                                        PATH_A_STEPS)
     fl = fsi.fluid
     _require(label, fl.dense_precond and fl.dense_a_bf16 and fl.f32_matrix,
              "bench knobs not set")
@@ -784,7 +859,9 @@ def phase6_path_a(torch):
              f"preconditioner: {used}")
     say(f"{label}: dense branch taken, Taylor-Hood f32 launched, no element "
         "layout in the preconditioner ok")
-    return launches, per_step
+    return (launches, per_step), [
+        ((s["solid_newton"], s["fluid_newton"]), dict(s["krylov"]))
+        for s in fsi.step_log]
 
 
 def phase7_path_b(torch, results):
@@ -886,6 +963,9 @@ def phase8_coarse_cylinder(torch, results):
         f"branches {dict(gfl.precond_branches)}; {t_gpu:.2f} s CUDA, "
         f"{t_cpu:.2f} s CPU {'ok' if ok else 'FAILED'}")
     _require(label, ok, "InsIM stepper: CUDA and CPU runs disagree")
+    _repeat(torch, label, "coarse cylinder r1, the CUDA run",
+            (gfl, gsol, grel, gits), lambda r: (r[1],),
+            lambda r: (r[3], dict(r[0].krylov_iters)), insim, "cuda")
     _check_launched(torch, label, gfl, launches, results,
                     gfl._pressure_mg.levels)
 
@@ -907,6 +987,9 @@ def phase8_coarse_cylinder(torch, results):
         f"index_add_); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "InsIMEX: CUDA and CPU runs disagree")
+    _repeat(torch, label, "coarse InsIMEX, the CUDA run", (gfl, gouter),
+            lambda r: (r[0].present_solution,),
+            lambda r: (r[1], dict(r[0].krylov_iters)), imex, "cuda")
     _check_launched(torch, label, gfl, imex_launches, results)
     # the host first step and the stepper's 3; InsIMEX's 3
     return {"coarse_cylinder": _path(launches, 4),
@@ -1158,7 +1241,8 @@ def phase11_coarse_supg(torch, results):
             return fl, newton
         return run
 
-    runs = [("SCnsIM coupled stencil", 2, supg("SCnsIM", 2),
+    # one step each, cut to fit the script's time limit
+    runs = [("SCnsIM coupled stencil", 1, supg("SCnsIM", 1),
              ("stencil", "stencil", "galerkin")),
             ("SCnsIM element", 1, supg("SCnsIM", 1, coupled_stencil=False),
              ("element", "nodeblock", "galerkin")),
@@ -1190,6 +1274,10 @@ def phase11_coarse_supg(torch, results):
             f"branches {dict(gfl.precond_branches)}; {t_gpu:.2f} s CUDA, "
             f"{t_cpu:.2f} s CPU {'ok' if ok else 'FAILED'}")
         _require(label, ok, f"{what}: CUDA and CPU runs disagree")
+        _repeat(torch, label, f"coarse cylinder {what}, the CUDA run",
+                (gfl, gn), lambda r: (r[0].present_solution,
+                                      r[0].stress_device),
+                lambda r: (r[1], dict(r[0].krylov_iters)), run, "cuda")
         _check_launched(torch, label, gfl, launches, results,
                         _galerkin_levels(torch, gfl._pressure_mg))
         paths[f"coarse_{_slug(what)}"] = _path(launches, n_steps)
@@ -1219,6 +1307,9 @@ def phase11_coarse_supg(torch, results):
             f"{t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
             f"{'ok' if ok else 'FAILED'}")
         _require(label, ok, f"SCnsEX.{entry}: CUDA and CPU runs disagree")
+        _repeat(torch, label, f"coarse duct SCnsEX.{entry}, the CUDA run",
+                gfl, lambda f: (f.present_solution,),
+                lambda f: dict(f.krylov_iters), duct(entry), "cuda")
         _check_scnsex_launched(torch, label, gfl, launches, results)
         paths[f"coarse_duct_{entry}"] = _path(launches, 6)
     return paths
@@ -1324,6 +1415,8 @@ def phase12_scnsim(torch, results, depth):
              f"layouts on the stencil branch: {sorted(launches)}")
     _check_launched(torch, label, fl, launches, results,
                     _galerkin_levels(torch, fl._pressure_mg))
+    if not n_element:
+        return {"scnsim_r3": (launches, per_step)}
 
     # the element branch from the same state
     for _ in range(n_warm + n_timed):
@@ -1498,6 +1591,9 @@ def phase14_coarse_mpi(torch, results):
             f"{dict(launches)}; {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
             f"{'ok' if ok else 'FAILED'}")
         _require(label, ok, f"{what}: CUDA and CPU runs disagree")
+        _repeat(torch, label, f"{what}, the CUDA run", g,
+                lambda f: _fsi_state(f) + (f.fluid.stress_device,),
+                _log_counts, run, "cuda")
         fe_solid = g.solid if hasattr(g.solid, "cell_dofs") else None
         for name_dt in sorted({k[1] for k in launches}):
             dt = getattr(torch, name_dt)
@@ -1717,6 +1813,11 @@ def phase16_coarse_vocal_fold(torch, results):
         f"{dict(launches)}; {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "coarse vocal fold: CUDA and CPU runs disagree")
+    _repeat(torch, label, "coarse vocal fold, the CUDA run", g,
+            lambda f: _fsi_state(f) + (
+                f.fluid.turbulence_model.present_solution,
+                f.shear_velocities),
+            lambda f: (_log_counts(f), f.cv_history), run, "cuda")
     _check_vocal_fold_launched(torch, label, g, launches, results)
     paths = {"coarse_vocal_fold": _path(launches, COARSE_VOCAL_STEPS)}
 
@@ -1966,6 +2067,7 @@ def phase18_coarse_amr(torch, results):
     from openifem_tpu_torch.cases import fsi_disc as fd
     from openifem_tpu_torch.cases import mpi_block as mb
     from openifem_tpu_torch.cases import shell_plate as sp
+    from openifem_tpu_torch.la.operators import AtomicScatterGuard
     label = "phase 18"
     pkg = fc.port_package()
     paths = {}
@@ -1995,23 +2097,28 @@ def phase18_coarse_amr(torch, results):
         t0 = time.perf_counter()
         c, _, c_cells = leaflet("cpu")
         t_cpu = time.perf_counter() - t0
-    with _InDir("leaflet_restart"):
-        (_, p_snaps, _), l2, _ = _on_card(torch, leaflet, "cuda", 2)
+    # the run again, in two pieces (to step 2, then resumed from its
+    # checkpoints) inside the scatter guard
+    with _InDir("leaflet_restart"), AtomicScatterGuard():
+        (p, p_snaps, _), l2, _ = _on_card(torch, leaflet, "cuda", 2)
         (r, r_snaps, _), l3, _ = _on_card(torch, leaflet, "cuda", 4, True)
+    again = _log_counts(p) + _log_counts(r) == _log_counts(g) and \
+        _same_checkpoints("leaflet_cuda", "leaflet_restart")
     errs = {"fluid solution": _rel(g.fluid.present_solution,
                                    c.fluid.present_solution),
             "solid displacement": _rel(g.solid.current_displacement,
                                        c.solid.current_displacement)}
-    restart = {"fluid solution": _rel(r.fluid.present_solution,
-                                      g.fluid.present_solution),
-               "solid displacement": _rel(r.solid.current_displacement,
-                                          g.solid.current_displacement)}
+    # the card sums in a fixed order: the restart repeats the
+    # uninterrupted run to the bit
+    restart = {name: torch.equal(a, b) for name, a, b in zip(
+        ("fluid solution", "solid displacement"), _fsi_state(r),
+        _fsi_state(g))}
     same_mesh = (np.array_equal(g.fluid.mesh.cells, c.fluid.mesh.cells)
                  and np.array_equal(r.fluid.mesh.cells, g.fluid.mesh.cells)
                  and g_cells == c_cells)
     ok = (same_mesh and _counts(g) == _counts(c) and len(g.step_log) == 4
           and all(e <= 1e-6 for e in errs.values())
-          and all(e <= 1e-10 for e in restart.values())
+          and all(restart.values()) and again
           and r.time.get_timestep() == 4 and len(r.step_log) == 2)
     say(f"{label}: coarse leaflet (element branch, f64) through FSI.run, "
         f"interface refinement and a save every 2 steps, 4 steps: fluid "
@@ -2020,9 +2127,11 @@ def phase18_coarse_amr(torch, results):
         + ", ".join(f"{k} rel err {v:.3e}" for k, v in errs.items())
         + f" (rtol 1e-6); Newton (solid, fluid) per step CUDA {_counts(g)}"
         f" CPU {_counts(c)}; restart on the card from the step-2 "
-        f"checkpoints to step 4 against the uninterrupted card run: "
-        + ", ".join(f"{k} rel err {v:.3e}" for k, v in restart.items())
-        + f" (rtol 1e-10); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+        f"checkpoints to step 4, inside the scatter guard, against the "
+        f"uninterrupted card run: "
+        + ", ".join(f"{k} equal to the bit {v}" for k, v in restart.items())
+        + f", per-step counts and the step-4 checkpoints equal {again}; "
+        f"{t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "coarse leaflet with AMR and restart failed")
     _check_snapshots(torch, label, g_snaps + p_snaps + r_snaps, g.solid,
@@ -2047,9 +2156,11 @@ def phase18_coarse_amr(torch, results):
         t0 = time.perf_counter()
         cd, _ = disc("cpu")
         t_cpu = time.perf_counter() - t0
-    with _InDir("disc_restart"):
-        (_, dp_snaps), dl2, _ = _on_card(torch, disc, "cuda", 2)
+    with _InDir("disc_restart"), AtomicScatterGuard():
+        (pd, dp_snaps), dl2, _ = _on_card(torch, disc, "cuda", 2)
         (rd, dr_snaps), dl3, _ = _on_card(torch, disc, "cuda", 4, True)
+    again = _log_counts(pd) + _log_counts(rd) == _log_counts(gd) and \
+        _same_checkpoints("disc_cuda", "disc_restart")
     gm, cm = gd.fluid.mesh, cd.fluid.mesh
     same_mesh = (np.array_equal(gm.cells, cm.cells)
                  and np.array_equal(gm.level, cm.level)
@@ -2058,16 +2169,14 @@ def phase18_coarse_amr(torch, results):
                                    cd.fluid.present_solution),
             "solid displacement": _rel(gd.solid.current_displacement,
                                        cd.solid.current_displacement)}
-    restart = {"fluid solution": _rel(rd.fluid.present_solution,
-                                      gd.fluid.present_solution),
-               "solid displacement": _rel(rd.solid.current_displacement,
-                                          gd.solid.current_displacement)}
+    restart = {name: torch.equal(a, b) for name, a, b in zip(
+        ("fluid solution", "solid displacement"), _fsi_state(rd),
+        _fsi_state(gd))}
     cells = [snap.mesh.n_cells for snap, _ in d_snaps]
     ok = (same_mesh and _counts(gd) == _counts(cd) and len(gd.step_log) == 4
           and all(e <= 1e-6 for e in errs.values()) and len(set(cells)) > 1
           and np.array_equal(rd.fluid.mesh.cells, gm.cells)
-          and all(e <= 1e-10 for e in restart.values())
-          and len(rd.step_log) == 2)
+          and all(restart.values()) and again and len(rd.step_log) == 2)
     say(f"{label}: disc in the cavity (f64) through FSI.run, interface "
         f"refinement x2 before the first step and after every 2 steps, a "
         f"save every 2, 4 steps: fluid cells of each mesh set up {cells}, "
@@ -2075,10 +2184,11 @@ def phase18_coarse_amr(torch, results):
             f"{k} rel err {v:.3e}" for k, v in errs.items())
         + f" (rtol 1e-6); Newton (solid, fluid) per step CUDA {_counts(gd)}"
         f" CPU {_counts(cd)}; FSI.resume on the card from the step-2 "
-        f"checkpoints (the adapted mesh rebuilt from the file) to step 4 "
-        f"against the uninterrupted card run: " + ", ".join(
-            f"{k} rel err {v:.3e}" for k, v in restart.items())
-        + f" (rtol 1e-10); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
+        f"checkpoints (the adapted mesh rebuilt from the file) to step 4, "
+        f"inside the scatter guard, against the uninterrupted card run: "
+        + ", ".join(f"{k} equal to the bit {v}" for k, v in restart.items())
+        + f", per-step counts and the step-4 checkpoints equal {again}; "
+        f"{t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "the disc with interface refinement: CUDA and CPU "
              "disagree, or the restart does")
@@ -2120,6 +2230,9 @@ def phase18_coarse_amr(torch, results):
         f" {err:.3e} (rtol 1e-6); {t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU "
         f"{'ok' if ok else 'FAILED'}")
     _require(label, ok, "the cylinder with Kelly AMR: CUDA and CPU disagree")
+    _repeat(torch, label, "cylinder with Kelly AMR, the CUDA run",
+            (gc, c_snaps, g_steps), lambda r: (r[0].present_solution,),
+            lambda r: (r[2], dict(r[0].krylov_iters)), cylinder, "cuda")
     _check_snapshots(torch, label, c_snaps, None, cyl, results)
     paths["coarse_amr_cylinder"] = _path(cyl, KELLY_STEPS)
 
@@ -2137,33 +2250,34 @@ def phase18_coarse_amr(torch, results):
         t0 = time.perf_counter()
         cb = block("cpu", 4)
         t_cpu = time.perf_counter() - t0
-    with _InDir("block_restart"):
-        _, b2, _ = _on_card(torch, block, "cuda", 2)
+    with _InDir("block_restart"), AtomicScatterGuard():
+        pb, b2, _ = _on_card(torch, block, "cuda", 2)
         rb, b3, _ = _on_card(torch, block, "cuda", 4)
+    again = _log_counts(pb) + _log_counts(rb) == _log_counts(gb) and \
+        _same_checkpoints("block_cuda", "block_restart")
     errs = {name: _rel(getattr(f(gb), attr), getattr(f(cb), attr))
             for name, f, attr in (
                 ("fluid solution", lambda x: x.fluid, "present_solution"),
                 ("solid displacement", lambda x: x.solid,
                  "current_displacement"))}
-    restart = {name: _rel(getattr(f(rb), attr), getattr(f(gb), attr))
-               for name, f, attr in (
-                   ("fluid solution", lambda x: x.fluid, "present_solution"),
-                   ("solid displacement", lambda x: x.solid,
-                    "current_displacement"))}
+    # the card sums in a fixed order, so the restart repeats the
+    # uninterrupted run's last two steps to the bit
+    restart = {name: torch.equal(a, b) for name, a, b in zip(
+        ("fluid solution", "solid displacement"), _fsi_state(rb),
+        _fsi_state(gb))}
     ok = (_mpi_counts(gb) == _mpi_counts(cb) and len(rb.step_log) == 2
           and all(e <= 1e-6 for e in errs.values())
-          and all(e <= BLOCK_RESTART_TOL for e in restart.values()))
+          and all(restart.values()) and again)
     say(f"{label}: 2-D MPI block (body force, f64) through MPIFSI.run, 4 "
         f"steps with a save at steps 2 and 4, CUDA vs CPU: "
         + ", ".join(f"{k} rel err {v:.3e}" for k, v in errs.items())
         + f" (rtol 1e-6); (Newton, retries) per step CUDA {_mpi_counts(gb)}"
         f" CPU {_mpi_counts(cb)}; MPIFSI.run restarted on the card from the "
         f"step-2 checkpoints, steps {[s['step'] for s in rb.step_log]}, "
-        f"against the uninterrupted card run: "
-        + ", ".join(f"{k} rel err {v:.3e}" for k, v in restart.items())
-        + f" (rtol {BLOCK_RESTART_TOL:.0e}); {t_gpu:.2f} s CUDA, "
-        f"{t_cpu:.2f} s CPU "
-        f"{'ok' if ok else 'FAILED'}")
+        f"inside the scatter guard, against the uninterrupted card run: "
+        + ", ".join(f"{k} equal to the bit {v}" for k, v in restart.items())
+        + f", per-step counts and the step-4 checkpoints equal {again}; "
+        f"{t_gpu:.2f} s CUDA, {t_cpu:.2f} s CPU {'ok' if ok else 'FAILED'}")
     _require(label, ok, "the MPI block save / restart failed")
     blk = b1 + b2 + b3
     for name_dt in sorted({k[1] for k in blk}):
@@ -2387,11 +2501,14 @@ def phase19_adaptive(torch, results, n_steps):
             return out
         again.load_checkpoint = load
         _, l2, t_resume = _on_card(torch, again.resume, verbose=False)
-    diff = {"fluid solution": _rel(again.fluid.present_solution,
-                                   fl.present_solution),
-            "solid displacement": _rel(again.solid.current_displacement,
-                                       so.current_displacement)}
-    ok = (again.time.get_timestep() == n_steps
+    # the card sums in a fixed order: the resumed steps repeat the
+    # uninterrupted run's to the bit
+    same = {name: torch.equal(a, b) for name, a, b in zip(
+        ("fluid solution", "solid displacement"), _fsi_state(again),
+        _fsi_state(fsi))}
+    same["per-step counts"] = (_log_counts(again)
+                               == _log_counts(fsi)[saves[0]["step"]:])
+    ok = (all(same.values()) and again.time.get_timestep() == n_steps
           and again.fluid.mesh.n_cells == fl.mesh.n_cells
           and all(bool(torch.isfinite(t).all()) for t in (
               again.fluid.present_solution,
@@ -2400,9 +2517,8 @@ def phase19_adaptive(torch, results, n_steps):
         f"checkpoints (loaded in {t_load['s']:.3f} s) to step "
         f"{again.time.get_timestep()} in {t_resume:.2f} s: against the "
         f"uninterrupted run " + ", ".join(
-            f"{k} rel diff {v:.3e}" for k, v in diff.items())
-        + f" (not gated: the bench knobs' f32 solves and the card's atomics "
-        f"round differently from run to run) {'ok' if ok else 'FAILED'}")
+            f"{k} equal {v}" for k, v in same.items())
+        + f" {'ok' if ok else 'FAILED'}")
     _require(label, ok, "the resumed adaptive leaflet failed")
     _check_snapshots(torch, label, snaps + r_snaps, so, launches + l2,
                      results)
@@ -2477,12 +2593,6 @@ def _vs_cpu(name, card, cpu):
     counts = [k for k in ("iters", "newton") if k in card]
     same = all(np.array_equal(card[k], cpu[k]) for k in counts)
     return err, same
-
-
-def _case_launches(launches):
-    """The counts of entry.rank_run's cases (launches[case]) summed: the
-    rank's whole run."""
-    return sum((Counter(c) for c in launches.values()), Counter())
 
 
 def phase20_dryrun(torch, results, steps4):
@@ -2564,11 +2674,19 @@ def phase21_full(torch, results, refine):
     def per_step(d, n):
         return {k: v / n for k, v in d.items()}
 
-    # (a) the sharded stepper, world size 1 (NCCL)
+    # the ranks are started once per rank count (a process takes seconds
+    # to reach the card); rank_run counts each case's launches alone
     n_steps = CAVITY_STEPS
-    out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
-        ("a", "stepper_window", dict(refine=refine, n_steps=n_steps)),))
-    sh = out["a"]
+    one, one_launches, one_routes = spawn_ranks(entry.rank_run, 1, "cuda", (
+        ("a", "stepper_window", dict(refine=refine, n_steps=n_steps)),
+        ("b", "stencil_asolve", dict(refine=7)),
+        ("c", "supg_newton", dict(refine=3, element=True))))
+    four = spawn_ranks(entry.rank_run, 4, "cuda", (
+        ("b", "stencil_asolve", dict(refine=7)),
+        ("d", "element_cg", dict(cells=64))), all_ranks=True)
+
+    # (a) the sharded stepper, world size 1 (NCCL)
+    sh, routes = one["a"], one_routes
     ref = entry.numpy_tree(entry.stepper_window(None, cuda, refine, n_steps))
     err = err_of(sh["u"], ref["u"])
     ok = (err < 1e-5 and sh["rel"] < sh["tol"] and ref["rel"] < ref["tol"]
@@ -2589,17 +2707,16 @@ def phase21_full(torch, results, refine):
         f"{ref['peak_bytes'] / 2**20:.1f} MiB; both windows "
         f"{sh['seconds'] + ref['seconds']:.1f} s {'ok' if ok else 'FAILED'}")
     _require(label, ok, "the sharded stepper differs from the unsharded")
-    launched = _case_launches(launches)
+    launched = Counter(one_launches["a"])
     _rank_tables_check(torch, label, sh["tables"], launched, results)
     # launches over the rank's run; per step of the window alone
     paths["sharded_stepper"] = (launched, per_step(sh["launches"], n_steps))
 
     # (b) the plane-sharded stencil A-solve at refine 7
     ref = entry.numpy_tree(entry.stencil_asolve(None, cuda, 7))
-    for n_ranks in (4, 1):
-        out, launches, routes = spawn_ranks(entry.rank_run, n_ranks, "cuda",
-                                            (("b", "stencil_asolve",
-                                              dict(refine=7)),))
+    for n_ranks, (out, launches, routes) in ((4, four[0]),
+                                             (1, (one, one_launches,
+                                                  one_routes))):
         sh = out["b"]
         err = err_of(sh["x"], ref["x"])
         ok = err < 1e-8 and abs(int(sh["iters"]) - int(ref["iters"])) <= 2
@@ -2617,13 +2734,11 @@ def phase21_full(torch, results, refine):
             f"{sh['calls']} ({n_mv} matvecs), {sh['nbytes']} B, staged "
             f"through host {sh['staged']} B {'ok' if ok else 'FAILED'}")
         _require(label, ok, "the plane-sharded A-solve differs")
-        _require(label, not _case_launches(launches),
-                 f"the stencil solve launched {launches}")
+        _require(label, not launches["b"],
+                 f"the stencil solve launched {launches['b']}")
 
     # (c) sharded_supg_newton, world size 1
-    out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
-        ("c", "supg_newton", dict(refine=3, element=True)),))
-    sh = out["c"]
+    sh, routes = one["c"], one_routes
     t_sh = sh["run_seconds"]
     t0 = time.perf_counter()
     ref = entry.numpy_tree(entry.supg_newton(None, cuda, 3, element=True))
@@ -2637,18 +2752,16 @@ def phase21_full(torch, results, refine):
         f"{sh['iters']} / {ref['iters']}; {t_sh:.2f} s sharded (set-up "
         f"included), {t_ref:.2f} s unsharded {'ok' if ok else 'FAILED'}")
     _require(label, ok, "sharded_supg_newton differs from the unsharded")
-    launched = _case_launches(launches)
+    launched = Counter(one_launches["c"])
     _rank_tables_check(torch, label, sh["tables"], launched, results)
     paths["sharded_supg_newton"] = _path(launched, 1)
 
     # (d) sharded_element_cg, 4 ranks sharing the card
-    per_rank = spawn_ranks(entry.rank_run, 4, "cuda", (
-        ("d", "element_cg", dict(cells=64)),), all_ranks=True)
-    sh, routes = per_rank[0][0]["d"], per_rank[0][2]
+    sh, routes = four[0][0]["d"], four[0][2]
     ref = entry.numpy_tree(entry.element_cg(None, cuda, 64))
     err = err_of(sh["x"], ref["x"])
     ok = err < 1e-10 and abs(int(sh["iters"]) - int(ref["iters"])) <= 1
-    launched = sum((_case_launches(lc) for _, lc, _ in per_rank), Counter())
+    launched = sum((Counter(lc["d"]) for _, lc, _ in four), Counter())
     say(f"{label} (d): shell plate 64 x 64 ({sh['dofs']} dofs, 20 x 20 f64 "
         f"blocks), sharded_element_cg on 4 ranks ({routes}): "
         f"{1e3 * sh['seconds']:.1f} ms/solve, {sh['iters']} iterations "
@@ -2658,41 +2771,43 @@ def phase21_full(torch, results, refine):
         f"{sh['calls']}, bytes {sh['nbytes']}, staged through host "
         f"{sh['staged']} B {'ok' if ok else 'FAILED'}")
     _require(label, ok, "sharded_element_cg differs from the unsharded CG")
-    _rank_tables_check(torch, label, [t for out, _, _ in per_rank
+    _rank_tables_check(torch, label, [t for out, _, _ in four
                                       for t in out["d"]["tables"]], launched,
                        results)
     paths["sharded_element_cg"] = _path(launched, 1)
     return paths
 
 
-def _leaflet_pair(torch, label, config, n_steps, results, **kw):
+def _leaflet_pair(torch, label, sharded, launches, routes, results,
+                  first=None):
     """A leaflet bench configuration at full width (entry.leaflet_run)
     with its fluid sharded by shard_fluid_solver in one rank (NCCL), and
-    unsharded here, both with torch's deterministic algorithms (the
-    card's index_add_ then sums in a fixed order: at world size 1 the two
-    runs make the same sums, so any difference is the sharding's): state
-    within 1e-6, equal Newton and Krylov counts per step.  Returns the
-    path (the rank's launches over its coupled steps)."""
+    unsharded here.  `sharded`: (the rank's leaflet_run result, its
+    keyword arguments), `launches` its counts, `routes` the rank's
+    collective routes.  The card sums every scatter in a fixed
+    order, so at world size 1 the two runs make the same sums: state equal
+    to the bit, equal Newton and Krylov counts per step.  `first`: the
+    per-step ((solid, fluid) Newton, Krylov) counts of an earlier run of
+    the same configuration (phase 6), which the unsharded run's steps must
+    repeat.  Returns the path (the rank's launches over its coupled
+    steps)."""
     import numpy as np
 
     from openifem_tpu_torch import entry
-    from openifem_tpu_torch.parallel import spawn_ranks
-    kw = dict(config=config, n_steps=n_steps, **kw)
-    t0 = time.perf_counter()
-    out, launches, routes = spawn_ranks(entry.rank_run, 1, "cuda", (
-        ("leaflet", "leaflet_run", kw),))
-    t_sh = time.perf_counter() - t0
-    sh = out["leaflet"]
+    sh, kw = sharded
+    config = kw["config"]
     t0 = time.perf_counter()
     ref = entry.numpy_tree(entry.leaflet_run(None, torch.device("cuda"),
                                              **kw))
     t_ref = time.perf_counter() - t0
-    err = float(np.abs(sh["state"] - ref["state"]).max()
-                / np.abs(ref["state"]).max())
+    bits = bool(np.array_equal(sh["state"], ref["state"]))
     finite = bool(np.isfinite(sh["state"]).all())
-    ok = (finite and err <= 1e-6 and sh["newton"] == ref["newton"]
+    mine = [((int(a), int(b)), k)
+            for (a, b), k in zip(ref["newton"], ref["krylov"])]
+    repeats = first is None or mine == first[:len(mine)]
+    ok = (finite and bits and sh["newton"] == ref["newton"]
           and sh["krylov"] == ref["krylov"] and sh["dofs"] == FULL_DOFS[config]
-          and sh["branches"] == ref["branches"])
+          and sh["branches"] == ref["branches"] and repeats)
     n_coupled = sum(sh["coupled"])
 
     def coupled_ms(r):
@@ -2700,25 +2815,29 @@ def _leaflet_pair(torch, label, config, n_steps, results, **kw):
     per_step = {k: v / n_coupled for k, v in sh["calls"].items()}
     say(f"{label}: {config} ({sh['dofs']} dofs, branches {sh['branches']}), "
         f"host first step + {n_coupled} coupled, fluid sharded at world "
-        f"size 1 ({routes['all_reduce']}), deterministic algorithms: ms per "
+        f"size 1 ({routes['all_reduce']}): ms per "
         f"coupled step sharded {coupled_ms(sh)}, unsharded "
         f"{coupled_ms(ref)} (host first step {sh['ms'][0]:.1f} / "
-        f"{ref['ms'][0]:.1f}); state rel err {err:.3e} (1e-6); Newton "
+        f"{ref['ms'][0]:.1f}); state equal to the bit {bits}; Newton "
         f"(solid, fluid) {sh['newton']} / {ref['newton']}; Krylov per step "
-        f"{sh['krylov']} / {ref['krylov']}; collectives {sh['calls']} "
+        f"{sh['krylov']} / {ref['krylov']}"
+        + ("" if first is None else
+           f"; the unsharded run's steps repeat phase 6's first "
+           f"{len(mine)} Newton and Krylov counts {repeats}")
+        + f"; collectives {sh['calls']} "
         f"({ {k: round(v, 1) for k, v in per_step.items()} } per coupled "
         f"step, those of the host first step included), bytes "
         f"{sh['nbytes']}; peak memory {sh['peak_bytes'] / 2**20:.1f} / "
-        f"{ref['peak_bytes'] / 2**20:.1f} MiB; {t_sh:.1f} s with the rank's "
-        f"start, {t_ref:.1f} s unsharded {'ok' if ok else 'FAILED'}")
+        f"{ref['peak_bytes'] / 2**20:.1f} MiB; {sh['run_seconds']:.1f} s "
+        f"in the rank, {t_ref:.1f} s unsharded {'ok' if ok else 'FAILED'}")
     _require(label, ok, f"the sharded {config} differs from the unsharded")
     _require(label, bool(sh["launches"]), "no kernel launched")
-    launched = _case_launches(launches)
+    launched = Counter(launches)
     _rank_tables_check(torch, label, sh["tables"], launched, results)
     return launched, {k: v / n_coupled for k, v in sh["launches"].items()}
 
 
-def phase22_sharded_paths(torch, results, stepper):
+def phase22_sharded_paths(torch, results, stepper, path_a_log=None):
     """The slice's paths sharded on the card: (a) path A (fsi_leaflet,
     17,249 dofs, the dense branch with the bf16 A block) and (b) path B
     (fsi_leaflet_r2, 232,997 dofs, the stencil A-solve and one pressure
@@ -2732,13 +2851,27 @@ def phase22_sharded_paths(torch, results, stepper):
     from openifem_tpu_torch import entry
     from openifem_tpu_torch.parallel import spawn_ranks
     label = "phase 22"
-    paths = {"sharded_path_a": _leaflet_pair(
-        torch, f"{label} (a)", "fsi_leaflet", SHARDED_A_STEPS, results)}
-    paths["sharded_path_b"] = _leaflet_pair(
-        torch, f"{label} (b)", "fsi_leaflet_r2", SHARDED_B_STEPS, results,
-        extra_refine=2)
-
     refine, n_steps = stepper
+    # the ranks are started once per rank count (a process takes seconds
+    # to reach the card); rank_run counts each case's launches alone, and
+    # (c) comes first, so its memory figures are the window's own
+    kws = {"a": dict(config="fsi_leaflet", n_steps=SHARDED_A_STEPS),
+           "b": dict(config="fsi_leaflet_r2", n_steps=SHARDED_B_STEPS,
+                     extra_refine=2)}
+    stepper_case = ("c", "stepper_window", dict(refine=refine,
+                                                n_steps=n_steps))
+    leaflets = tuple((k, "leaflet_run", kw) for k, kw in kws.items())
+    ranks = {n: spawn_ranks(entry.rank_run, n, "cuda", cases, all_ranks=True)
+             for n, cases in ((1, (stepper_case,) + leaflets),
+                              (4, (stepper_case,)))}
+    one, one_launches, one_routes = ranks[1][0]
+    paths = {"sharded_path_a": _leaflet_pair(
+        torch, f"{label} (a)", (one["a"], kws["a"]), one_launches["a"],
+        one_routes, results, path_a_log)}
+    paths["sharded_path_b"] = _leaflet_pair(
+        torch, f"{label} (b)", (one["b"], kws["b"]), one_launches["b"],
+        one_routes, results)
+
     ref = entry.numpy_tree(entry.stepper_window(None, torch.device("cuda"),
                                                 refine, n_steps))
     say(f"{label} (c): cavity refine {refine} ({ref['dofs']} dofs), "
@@ -2747,9 +2880,7 @@ def phase22_sharded_paths(torch, results, stepper):
         f"peak memory {ref['peak_bytes'] / 2**20:.2f} MiB (this process "
         f"held {ref['base_bytes'] / 2**20:.2f} MiB when the window began)")
     for n_ranks in (4, 1):
-        per_rank = spawn_ranks(entry.rank_run, n_ranks, "cuda", (
-            ("c", "stepper_window", dict(refine=refine, n_steps=n_steps)),),
-            all_ranks=True)
+        per_rank = ranks[n_ranks]
         routes = per_rank[0][2]
         sh = per_rank[0][0]["c"]
         err = _vs_ref(sh["u"], ref["u"])
@@ -2773,7 +2904,7 @@ def phase22_sharded_paths(torch, results, stepper):
             f"{sh['staged']} B {'ok' if ok else 'FAILED'}")
         _require(label, ok, f"the range-sharded stepper at {n_ranks} ranks "
                  "differs from the unsharded")
-        launched = sum((_case_launches(lc) for _, lc, _ in per_rank),
+        launched = sum((Counter(lc["c"]) for _, lc, _ in per_rank),
                        Counter())
         _rank_tables_check(torch, label, [t for o, _, _ in per_rank
                                           for t in o["c"]["tables"]],
@@ -2822,8 +2953,8 @@ def main():
         ap.error(f"--amr-depth takes at least {AMR_STEPS} steps")
     want = {int(p) for p in args.phases.split(",") if p}
     depth = tuple(int(n) for n in args.scnsim_depth.split(","))
-    if len(depth) != 3 or min(depth[1:]) < 1 or depth[0] < 0:
-        ap.error("--scnsim-depth takes warm >= 0, timed >= 1, element >= 1")
+    if len(depth) != 3 or depth[1] < 1 or min(depth[0], depth[2]) < 0:
+        ap.error("--scnsim-depth takes warm >= 0, timed >= 1, element >= 0")
     wall3d_depth = tuple(int(n) for n in args.wall3d_depth.split(","))
     if len(wall3d_depth) != 2 or wall3d_depth[0] < 0 or wall3d_depth[1] < 1:
         ap.error("--wall3d-depth takes warm >= 0, timed >= 1")
@@ -2851,8 +2982,10 @@ def main():
             runs["element"] = _run_phase(4, phase4_full, torch)
         if 5 in want:
             _run_phase(5, phase5_coarse_bench, torch)
+        path_a_log = None
         if 6 in want:
-            runs["fsi_leaflet"] = _run_phase(6, phase6_path_a, torch)
+            runs["fsi_leaflet"], path_a_log = _run_phase(6, phase6_path_a,
+                                                         torch)
         if 7 in want:
             runs["fsi_leaflet_r2"] = _run_phase(7, phase7_path_b, torch,
                                                checked)
@@ -2897,7 +3030,7 @@ def main():
                                    CAVITY_REFINE))
         if 22 in want:
             runs.update(_run_phase(22, phase22_sharded_paths, torch,
-                                   checked, RANGE_STEPPER))
+                                   checked, RANGE_STEPPER, path_a_log))
         os.chdir(root)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version

@@ -462,20 +462,13 @@ def leaflet_run(mesh, device, config="fsi_leaflet", n_steps=3,
     dofs at extra_refine 2) at full width through FSI.run's set-up and
     time loop, the host first step and n_steps - 1 coupled steps, with
     the fluid's Newton iterations sharded by shard_fluid_solver over
-    `mesh` (or unsharded).  It runs with torch's deterministic algorithms
-    (the card's index_add_ then sums in a fixed order, so two runs of the
-    same sums give the same bits).  Returns the state (fluid solution and
-    solid displacement), per step the ms, Newton and Krylov counts, the
-    branches, the peak device memory and, sharded, the collectives and
-    the rank's tables; "launches" counts the coupled steps alone."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        return _leaflet_run(mesh, device, config, n_steps, extra_refine)
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
-def _leaflet_run(mesh, device, config, n_steps, extra_refine):
+    `mesh` (or unsharded).  It needs no deterministic mode: the port sums
+    every scatter on the card through plans in a fixed order
+    (la/operators.py), so two runs of the same sums give the same bits.
+    Returns the state (fluid solution and solid displacement), per step
+    the ms, Newton and Krylov counts, the branches, the peak device memory
+    and, sharded, the collectives and the rank's tables; "launches" counts
+    the coupled steps alone."""
     fsi = leaflet_case(port_package(), config, n_steps=n_steps,
                        extra_refine=extra_refine, **_kw(device))
     fsi._setup_run()

@@ -20,7 +20,9 @@ indicator cell" flags are a max-scatter (scatter_reduce "amax"); the
 owner-cell velocity gradient is a gather through a precomputed (cell,
 slot) index per node, one term per node, so no atomics; the boundary rows
 are a set on unique indices; the contact traction adds at shared vertices
-once per (face, vertex) occurrence, by design (index_add_).
+once per (face, vertex) occurrence, by design, through the planned sum
+of the occurrence table (la/operators.py::add_at; the table is cached
+per solid mesh, so its plan is built once).
 
 A fluid with a turbulence model (the Spalart-Allmaras wall functions,
 source/mpi_fsi.cpp:78-120, 655-660, 784-844, 1199-1203) takes the
@@ -44,6 +46,7 @@ import torch
 
 from ..config import real_dtype
 from ..fe.fevalues import _geometry_jacobians
+from ..la.operators import add_at
 from ..mesh.mesh import FACE_VERTICES
 from ..solvers.fluid.supg import SUPGFluidSolver
 from .fsi import FSI, _same_meshes
@@ -340,7 +343,7 @@ class MPIFSI(FSI):
         extra = torch.zeros(col.shape + (d,), dtype=rows.dtype,
                             device=rows.device)
         extra[..., d - 1] = col
-        return rows.index_add(0, verts_t, extra), bool(active.any())
+        return add_at(rows.clone(), verts_t, extra), bool(active.any())
 
     def apply_contact_model(self, first_step: bool) -> int:
         """reference: source/mpi_fsi.cpp:870-969.  All boundary faces

@@ -16,6 +16,7 @@ import torch
 
 from ..config import device as _device
 from ..config import real_dtype
+from .operators import index_sum
 
 
 class Constraints:
@@ -92,9 +93,7 @@ class Constraints:
         if self.any_hanging:
             w = self.hang_w.to(y.dtype)
             contrib = torch.where(self.hanging, y, 0.0)
-            add = torch.zeros_like(y).index_add_(
-                0, self.hang_idx.reshape(-1),
-                (contrib[:, None] * w).reshape(-1))
+            add = index_sum(y.shape[0], self.hang_idx, contrib[:, None] * w)
             y = y + add
         return torch.where(self.fixed, 0.0, y)
 

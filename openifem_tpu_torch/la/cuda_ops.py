@@ -35,6 +35,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from collections import Counter
 
 import torch
@@ -128,15 +129,17 @@ def _lib():
     return _LIB
 
 
-def _cached(t, key, make):
+def _cached(t, key, make, others=()):
     """make() once per (table tensor, key) while the tensor is unchanged:
     the cache lives on the tensor and is keyed by its version counter,
-    which every in-place write advances."""
+    which every in-place write advances.  `others`: more tables the value
+    depends on, held by weak reference and version."""
     cache = t.__dict__.setdefault("_element_matvec_cache", {})
-    key = (t._version,) + key
-    if key not in cache:
-        cache[key] = make()
-    return cache[key]
+    key = (t._version,) + tuple((id(o), o._version) for o in others) + key
+    hit = cache.get(key)
+    if hit is None or any(r() is not o for r, o in zip(hit[0], others)):
+        hit = cache[key] = ([weakref.ref(o) for o in others], make())
+    return hit[1]
 
 
 def _check_table(name, t, width, n_entities, device):

@@ -15,10 +15,12 @@ R = Constraints.restrict = E^T, so the condensed dense block is
 
 The hanging-node structure is mesh-static (runtime constraint extensions
 only add Dirichlet rows), so condensation uses static hanging-row index
-lists: a (n_h, k) row gather, a small weighted index_add_ into the master
-rows, and a fixed-row mask.  The masks are applied IN PLACE on the freshly
-assembled matrix, so a Newton iteration holds one copy of each block (the
-leaflet's f32 A block is 871 MB at full size).  The GEMVs stay
+lists, built once per Constraints object: a (n_h, k) row gather, a small
+weighted sum into the master rows (la/operators.py::add_at, planned on
+the card), and a fixed-row mask.  The build is la/operators.py::dense_sum.
+The masks are applied IN PLACE on the freshly assembled matrix, so a
+Newton iteration holds one copy of each block (the leaflet's f32 A block
+is 871 MB at full size).  The GEMVs stay
 torch.matmul: the JAX package leaves them to XLA, outside any Pallas
 kernel.
 """
@@ -27,28 +29,32 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
+
+from .operators import add_at, dense_sum
 
 
 class HangingTables(NamedTuple):
     """Static hanging-node structure of one Constraints object (the
-    runtime-varying Dirichlet set does not touch these)."""
-    rows: np.ndarray      # (n_h,) hanging dof ids
-    masters: np.ndarray   # (n_h, m) master dof ids
-    weights: np.ndarray   # (n_h, m) weights
+    runtime-varying Dirichlet set does not touch these), on its device."""
+    rows: torch.Tensor      # (n_h,) hanging dof ids
+    masters: torch.Tensor   # (n_h, m) master dof ids
+    weights: torch.Tensor   # (n_h, m) weights
 
 
 def hanging_tables(cons) -> Optional[HangingTables]:
     """The static hanging structure of a Constraints object (call on the
-    solver's own constraints; extended runtime variants share it)."""
-    if not cons.any_hanging:
-        return None
-    rows = np.where(cons.hanging.cpu().numpy())[0]
-    if len(rows) == 0:
-        return None
-    return HangingTables(rows, cons.hang_idx.cpu().numpy()[rows],
-                         cons.hang_w.cpu().numpy()[rows])
+    solver's own constraints; extended runtime variants share it).  Made
+    once per object, so the master table keeps its sum plan."""
+    if "_hanging_tables" not in cons.__dict__:
+        ht = None
+        if cons.any_hanging:
+            rows = torch.nonzero(cons.hanging).reshape(-1)
+            if len(rows):
+                ht = HangingTables(rows, cons.hang_idx[rows],
+                                   cons.hang_w[rows])
+        cons._hanging_tables = ht
+    return cons._hanging_tables
 
 
 def dense_from_elements(blocks, row_dofs, col_dofs, n_rows: int,
@@ -57,29 +63,17 @@ def dense_from_elements(blocks, row_dofs, col_dofs, n_rows: int,
     (n_rows, n_cols) matrix (duplicate dofs accumulate)."""
     if dtype is None:
         dtype = blocks.dtype
-    M = torch.zeros((n_rows, n_cols), dtype=dtype, device=blocks.device)
-    flat = (row_dofs.long()[:, :, None] * n_cols +
-            col_dofs.long()[:, None, :])
-    M.view(-1).index_add_(0, flat.reshape(-1),
-                          blocks.to(dtype).reshape(-1))
-    return M
-
-
-def _tables(ht: HangingTables, M):
-    dev = M.device
-    return (torch.as_tensor(ht.rows, device=dev),
-            torch.as_tensor(ht.masters, device=dev).reshape(-1),
-            torch.as_tensor(ht.weights, dtype=M.dtype, device=dev))
+    return dense_sum(blocks.to(dtype), row_dofs, col_dofs, n_rows, n_cols)
 
 
 def condense_left(M, fixed, ht: Optional[HangingTables]):
     """R M, in place: accumulate hanging rows into their master rows, then
     zero fixed rows.  Returns M."""
     if ht is not None:
-        rows, masters, w = _tables(ht, M)
-        Mh = M[rows]                                      # (n_h, k)
+        w = ht.weights.to(M.dtype)
+        Mh = M[ht.rows]                                   # (n_h, k)
         add = w[:, :, None] * Mh[:, None, :]              # (n_h, m, k)
-        M.index_add_(0, masters, add.reshape(-1, M.shape[1]))
+        add_at(M, ht.masters, add)
     return M.masked_fill_(fixed[:, None], 0.0)
 
 
@@ -87,10 +81,10 @@ def condense_right(M, fixed, ht: Optional[HangingTables]):
     """M E = (R M^T)^T, in place: distribute hanging columns into master
     columns, then zero fixed columns.  Returns M."""
     if ht is not None:
-        rows, masters, w = _tables(ht, M)
-        Mh = M[:, rows]                                   # (k, n_h)
+        w = ht.weights.to(M.dtype)
+        Mh = M[:, ht.rows]                                # (k, n_h)
         add = Mh[:, :, None] * w[None, :, :]              # (k, n_h, m)
-        M.index_add_(1, masters, add.reshape(M.shape[0], -1))
+        add_at(M, ht.masters, add, dim=1)
     return M.masked_fill_(fixed[None, :], 0.0)
 
 

@@ -32,7 +32,9 @@ from ..config import index_dtype
 from ..fe.fevalues import cell_values
 from ..fe.shapes import QkShapes
 from ..fe.space import FESpace
-from ..la.operators import element_matvec, element_matvec_nodeblock
+from ..la.dense import dense_from_elements
+from ..la.operators import (element_diag, element_matvec,
+                             element_matvec_nodeblock, index_sum)
 
 
 def _expand_dofs(cd, k):
@@ -159,13 +161,9 @@ def _prolong(cd, W, xc, k):
 def _restrict(cd, W, rf, k, n_coarse_nodes):
     """Transpose of _prolong."""
     if k == 1:
-        return torch.zeros(n_coarse_nodes, dtype=rf.dtype,
-                           device=rf.device).index_add_(
-            0, cd.reshape(-1), (W * rf[:, None]).reshape(-1))
+        return index_sum(n_coarse_nodes, cd, W * rf[:, None])
     contrib = W[:, :, None] * rf.reshape(-1, k)[:, None, :]  # (n_f, nlc, k)
-    out = torch.zeros((n_coarse_nodes, k), dtype=rf.dtype, device=rf.device)
-    out.index_add_(0, cd.reshape(-1), contrib.reshape(-1, k))
-    return out.reshape(-1)
+    return index_sum(n_coarse_nodes, cd, contrib).reshape(-1)
 
 
 def _chebyshev(mv, dinv, lmax, b, x, degree: int, x_is_zero: bool = False):
@@ -655,10 +653,8 @@ class GalerkinMG:
                 contrib = torch.einsum("fim,fiajb,fjn->fmanb", W, B, W
                                        ).reshape(-1, nl_c * k, nl_c * k)
             n_cc = len(self._cell_dofs_np[i - 1])
-            level_blocks[i - 1] = torch.zeros(
-                (n_cc, nl_c * k, nl_c * k), dtype=dtype,
-                device=blocks.device).index_add_(0, self.parent[i - 1],
-                                                 contrib)
+            level_blocks[i - 1] = index_sum(n_cc, self.parent[i - 1],
+                                            contrib)
 
         def level_ops(i):
             blocks = level_blocks[i]
@@ -670,10 +666,7 @@ class GalerkinMG:
                 y = element_matvec(blocks, cdk, n, x)
                 return y if fixed is None else torch.where(fixed, x, y)
 
-            dloc = torch.diagonal(blocks, dim1=1, dim2=2)
-            diag = torch.zeros(n, dtype=dtype, device=blocks.device
-                               ).index_add_(0, cdk.reshape(-1).long(),
-                                            dloc.reshape(-1))
+            diag = element_diag(blocks, cdk, n)
             if fixed is not None:
                 diag = torch.where(fixed, 1.0, diag)
             diag = torch.where(diag == 0, 1.0, diag)
@@ -687,12 +680,8 @@ class GalerkinMG:
         # Chebyshev sweeps.
         n0 = self.n0
         if n0 <= self.dense_coarse_max:
-            cd0 = self.cell_dofs_k[0].long()
-            A0 = torch.zeros((n0, n0), dtype=dtype,
-                             device=fine_blocks.device)
-            flat = cd0[:, :, None] * n0 + cd0[:, None, :]
-            A0.view(-1).index_add_(0, flat.reshape(-1),
-                                   level_blocks[0].reshape(-1))
+            cd0 = self.cell_dofs_k[0]
+            A0 = dense_from_elements(level_blocks[0], cd0, cd0, n0, n0)
             tr = torch.trace(A0) / n0
             A0 = A0 + (1e-6 * tr) * torch.eye(n0, dtype=dtype,
                                                device=A0.device)

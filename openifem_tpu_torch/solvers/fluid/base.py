@@ -20,6 +20,7 @@ from ...fe.fevalues import cell_values, face_values
 from ...fe.shapes import gauss_quadrature
 from ...fe.space import FESpace, SystemSpace
 from ...la.constraints import Constraints
+from ...la.operators import index_sum
 from ...parameters import (AllParameters, component_flag_to_mask,
                            component_flag_values)
 from ...utils.timectl import Time
@@ -350,10 +351,7 @@ class FluidSolverBase:
         # project each component
         cellwise = torch.einsum("iq,cqab->ciab", self._qpt_to_dof_t, tau)
         d = self.dim
-        out = torch.zeros((self.u_space.n_nodes, d, d), dtype=tau.dtype,
-                          device=tau.device)
-        out.index_add_(0, self._u_cell_nodes.reshape(-1),
-                       cellwise.reshape(-1, d, d))
+        out = index_sum(self.u_space.n_nodes, self._u_cell_nodes, cellwise)
         return out / self._scalar_counts_t[:, None, None]
 
     def update_stress(self):

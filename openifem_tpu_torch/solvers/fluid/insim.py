@@ -33,7 +33,8 @@ from ...la.operators import (element_diag, element_matvec,
                              element_matvec_nodeblock,
                              element_matvec_p_to_u_nodeblock,
                              element_matvec_taylor_hood,
-                             element_matvec_u_to_p_nodeblock, scatter_add)
+                             element_matvec_u_to_p_nodeblock, index_sum,
+                             scatter_add)
 from .base import FluidSolverBase, condensed
 
 
@@ -422,10 +423,7 @@ class InsIM(FluidSolverBase):
             from ...la.smalltensor import inv as small_inv
             diag_blocks = torch.diagonal(Auu_b, dim1=1, dim2=3).permute(
                 0, 3, 1, 2)                              # (n_c, nlu, d, d)
-            D = torch.zeros((n_un, d, d), dtype=pdt, device=self.device)
-            D.index_add_(0, cn_u.reshape(-1).long(),
-                         diag_blocks.reshape(-1, d, d))
-            D = lay.scatter(D)
+            D = lay.scatter(index_sum(n_un, cn_u, diag_blocks))
             fixed = fixed_u.reshape(-1, d)
             fi = fixed[:, :, None] | fixed[:, None, :]
             D = torch.where(fi, torch.eye(d, dtype=pdt, device=self.device),

@@ -20,7 +20,8 @@ from ...fe.shapes import gauss_quadrature
 from ...fe.space import FESpace, SystemSpace
 from ...la.constraints import Constraints
 from ...la.krylov import cg
-from ...la.operators import element_matvec
+from ...la.dense import dense_from_elements
+from ...la.operators import element_matvec, scatter_add
 from ...parameters import AllParameters, component_flag_to_mask
 from ...utils.timectl import Time
 
@@ -324,9 +325,7 @@ class SolidSolverBase:
         # rhs[(l,a)] += N_l(q) * t_a(q) * JxW(q)
         rl = torch.einsum("fqi,fqa,fq->fia", self._fv_N, traction_q,
                           self._fv_JxW)
-        return torch.zeros(self.n_dofs, dtype=rl.dtype,
-                           device=rl.device).index_add_(
-            0, self._face_cell_dofs.reshape(-1), rl.reshape(-1))
+        return scatter_add(self.n_dofs, self._face_cell_dofs, rl)
 
     # -- nodal strain/stress ------------------------------------------
     def update_strain_and_stress(self):
@@ -359,11 +358,8 @@ class SolidSolverBase:
         call, as jax.scipy.linalg.lu_factor is in the JAX package) + f64
         refinement."""
         n = self.n_dofs
-        cd = cell_dofs.to(torch.int64)
-        flat = (cd[:, :, None] * n + cd[:, None, :]).reshape(-1)
-        A = torch.zeros(n * n, dtype=torch.float32, device=b.device)
-        A.index_add_(0, flat, A_loc.to(torch.float32).reshape(-1))
-        A = A.reshape(n, n)
+        A = dense_from_elements(A_loc, cell_dofs, cell_dofs, n, n,
+                                torch.float32)
         fixed = cons.fixed
         A = torch.where(fixed[:, None] | fixed[None, :], 0.0, A)
         A = A + torch.diag(fixed.to(torch.float32))

@@ -16,7 +16,7 @@ import torch
 
 from ...config import index_dtype, real_dtype
 from ...la.krylov import cg
-from ...la.operators import element_diag, element_matvec
+from ...la.operators import element_diag, element_matvec, scatter_add
 from ...la.smalltensor import inv as _inv
 from .base import SolidSolverBase
 from .materials import kirchhoff_state, neo_hookean_state
@@ -98,9 +98,7 @@ class HyperElasticity(SolidSolverBase):
         A_loc = (Kmat + Kgeo).reshape(n_c, nl * d, nl * d)
 
         rl = -torch.einsum("cqlx,cqax,cq->cla", g, tau, JxW).reshape(n_c, -1)
-        rhs = torch.zeros(self.n_dofs, dtype=disp.dtype,
-                          device=disp.device).index_add_(
-            0, self.cell_dofs.reshape(-1), rl.reshape(-1))
+        rhs = scatter_add(self.n_dofs, self.cell_dofs, rl)
         return A_loc, rhs + self.gravity_rhs
 
     def _external_traction_rhs(self):

@@ -17,10 +17,12 @@ source/mpi_shared_hypo_elasticity.cpp, the fsi-wall-3D solid):
  - classic RK4 in time, FSI traction at boundary quadrature points.
 
 Each RK4 stage is a gather over the neighbour tables, a few small einsums
-and two index_add_ scatters into the particles (atomics on CUDA, so the
-CUDA and CPU sums round differently).  The FE-facing interface matches the
-other solid solvers (current_displacement/velocity/acceleration at vertex
-dofs), so the couplers and VTU output work unchanged.
+and two scatter-adds into the particles (la/operators.py: index_add_ on
+the CPU, a planned sum in a fixed order on CUDA, so a CUDA run repeats to
+the bit, and the CUDA and CPU sums round differently).  The FE-facing
+interface matches the other solid solvers (current_displacement/velocity/
+acceleration at vertex dofs), so the couplers and VTU output work
+unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ...config import real_dtype
 from ...fe.fevalues import cell_values, face_values
 from ...fe.shapes import gauss_quadrature
 from ...fe.space import FESpace, SystemSpace
+from ...la.operators import add_at, index_sum
 from ...parameters import AllParameters, component_flag_to_mask
 from .base import SolidSolverBase
 from .materials import lame_parameters
@@ -162,6 +165,9 @@ class HypoElasticity(SolidSolverBase):
         self.idx_q = t(idx_q, torch.int64)
         self.psi_q = t(psi_q)
         self.dpsi_q = t(dpsi_q)
+        # the slots whose force terms can be nonzero: the padding of the
+        # fixed-K tables (dpsi = 0) stays out of the card's sum plans
+        self._live_q = t((dpsi_q != 0).any(axis=-1), torch.bool)
         self.qw = t(qw)
 
         # boundary quadrature (for traction)
@@ -170,6 +176,7 @@ class HypoElasticity(SolidSolverBase):
             idx_b, psi_b, _ = rkpm_shapes_sparse(bq, X, h)
             self.idx_b = t(idx_b, torch.int64)
             self.psi_b = t(psi_b)
+            self._live_b = t(psi_b != 0, torch.bool)
             self.bqw = t(self.fv.JxW.reshape(-1))
             self.fsi_traction = torch.zeros((len(self.fv.cells), d),
                                             dtype=real_dtype(),
@@ -228,14 +235,13 @@ class HypoElasticity(SolidSolverBase):
         # internal nodal force: f_p = -sum_q V_q sigma_q . dpsi_p(X_q)
         contrib = -torch.einsum("qab,qkb->qka", qw[:, None, None] * sigma,
                                 dpsi_q)
-        f = torch.zeros((self.n_p, d), dtype=rt, device=v.device).index_add_(
-            0, self.idx_q.reshape(-1), contrib.reshape(-1, d))
+        f = index_sum(self.n_p, self.idx_q, contrib, self._live_q)
         f = f + mass[:, None] * self._gravity.to(rt)
         if traction_q is not None:
             tc = torch.einsum("bk,ba->bka",
                               self.bqw.to(rt)[:, None] * self.psi_b.to(rt),
                               traction_q.to(rt))
-            f = f.index_add_(0, self.idx_b.reshape(-1), tc.reshape(-1, d))
+            f = add_at(f, self.idx_b, tc, live=self._live_b)
         a = f / mass[:, None]
         a = torch.where(self.fixed, 0.0, a)
         return a.to(out_dtype), sig_dot.to(out_dtype)
@@ -456,9 +462,8 @@ class SharedHypoElasticity(SharedSolidMixin, HypoElasticity):
         sig = sigma.reshape(n_c, -1, d, d)
         cellwise = torch.einsum("iq,cqab->ciab",
                                 self._qpt_to_dof.to(sigma.dtype), sig)
-        out = torch.zeros((self.space.n_nodes, d, d), dtype=sigma.dtype,
-                          device=sigma.device).index_add_(
-            0, self._cell_nodes, cellwise.reshape(-1, d, d))
+        out = index_sum(self.space.n_nodes, self._cell_nodes,
+                        cellwise.reshape(-1, d, d))
         return out / self._node_counts.to(sigma.dtype)[:, None, None]
 
     def update_strain_and_stress(self):

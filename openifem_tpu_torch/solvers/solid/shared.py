@@ -25,7 +25,7 @@ import torch
 
 from ...config import index_dtype, real_dtype
 from ...fe.shapes import QkShapes, gauss_quadrature
-from ...la.operators import element_matvec
+from ...la.operators import element_matvec, scatter_add
 from ...mesh.mesh import FACE_VERTICES
 from .base import SolidSolverBase
 from .hyper import HyperElasticity
@@ -124,9 +124,7 @@ class SharedSolidMixin:
                                     self.fsi_stress_rows)
         # rhs[(l,a)] += N_l t_a JxW(moved)
         rl = torch.einsum("fqi,fqa,fq->fia", self._face_N, t_q, JxW)
-        return torch.zeros(self.n_dofs, dtype=rl.dtype,
-                           device=rl.device).index_add_(
-            0, self._face_cell_dofs.reshape(-1), rl.reshape(-1))
+        return scatter_add(self.n_dofs, self._face_cell_dofs, rl)
 
 
 class SharedLinearElasticity(SharedSolidMixin, LinearSteps, SolidSolverBase):

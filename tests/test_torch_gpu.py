@@ -204,11 +204,95 @@ def test_coarse_leaflet_step_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     assert np.isfinite(g.fluid.velocity_part()).all()
 
 
+# -- the planned sums (la/operators.py) that replace index_add_ on the card
+
+def _sum_cases(dev, dtype):
+    """(name, planned, index_add_ on the card) at each site's shape, on the
+    leaflet's random tables of _problem: 1-D values, node rows of width d
+    and d x d, the V-cycle restriction's rows of width k, the flat dense
+    build of the velocity block and condense_right's column sum."""
+    pr = _problem(dev, dtype)
+    g = torch.Generator(device=dev).manual_seed(3)
+    un, pd, n_un, n_c = pr["un"], pr["pd"], pr["n_un"], pr["n_c"]
+    cd_u = pr["cd"][:, :NLU * D].contiguous()
+    n_u = n_un * D
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+    v1, v2, v3 = rnd(n_c, NLP), rnd(n_c, NLU, D), rnd(n_c, NLU, D, D)
+    blk = rnd(n_c, NLU * D, NLU * D)
+    M = rnd(64, n_u)
+    cols = torch.randint(0, n_u, (50, 3), generator=g, device=dev)
+    vc = rnd(64, 50, 3)
+
+    def atomic_dense():
+        flat = (cd_u.long()[:, :, None] * n_u + cd_u.long()[:, None, :])
+        return torch.zeros(n_u * n_u, dtype=dtype, device=dev).index_add_(
+            0, flat.reshape(-1), blk.reshape(-1)).reshape(n_u, n_u)
+    return [
+        ("1-D", lambda: ops.index_sum(pr["n_p"], pd, v1),
+         lambda: torch.zeros(pr["n_p"], dtype=dtype, device=dev).index_add_(
+             0, pd.reshape(-1).long(), v1.reshape(-1))),
+        ("rows (n, d)", lambda: ops.index_sum(n_un, un, v2),
+         lambda: torch.zeros(n_un, D, dtype=dtype, device=dev).index_add_(
+             0, un.reshape(-1).long(), v2.reshape(-1, D))),
+        ("rows (n, d, d)", lambda: ops.index_sum(n_un, un, v3),
+         lambda: torch.zeros(n_un, D, D, dtype=dtype, device=dev)
+         .index_add_(0, un.reshape(-1).long(), v3.reshape(-1, D, D))),
+        ("dense build", lambda: ops.dense_sum(blk, cd_u, cd_u, n_u, n_u),
+         atomic_dense),
+        ("columns", lambda: ops.add_at(M.clone(), cols, vc, dim=1),
+         lambda: M.clone().index_add_(1, cols.reshape(-1),
+                                      vc.reshape(64, -1)))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_planned_sums_match_index_add(cuda, dtype):
+    """Each planned sum against index_add_ on the card (f64 1e-12, f32
+    1e-5 relative; the two sum in different orders), bitwise equal on
+    repeats, with no atomic scatter inside la/operators.py's guard."""
+    for name, planned, atomic in _sum_cases(cuda, dtype):
+        with ops.AtomicScatterGuard():
+            got = planned()
+            again = [planned() for _ in range(3)]
+        assert rel_err(got, atomic()) <= TOL[dtype], name
+        assert all(torch.equal(a, got) for a in again), name
+        with pytest.raises(RuntimeError, match="atomic scatter-add"):
+            with ops.AtomicScatterGuard():
+                atomic()
+
+
+def test_coarse_leaflets_repeat_to_the_bit(cuda, tmp_path, monkeypatch):
+    """Two card runs of the coarse leaflet (element branch, and the dense
+    branch of path A in f64) inside the guard: equal bits and equal
+    per-step Newton and Krylov counts."""
+    monkeypatch.chdir(tmp_path)
+    for config in ("element", "fsi_leaflet"):
+        runs = []
+        for _ in range(2):
+            fsi = leaflet_case(port_package(), config, h=0.1,
+                               refinements=(0, 1), n_steps=3, device=cuda,
+                               bench_precision=False)
+            with ops.AtomicScatterGuard():
+                fsi.run(verbose=False)
+            runs.append(fsi)
+        a, b = runs
+        assert torch.equal(a.fluid.present_solution, b.fluid.present_solution)
+        assert torch.equal(a.solid.current_displacement,
+                           b.solid.current_displacement)
+        assert [(s["solid_newton"], s["fluid_newton"], s["krylov"])
+                for s in a.step_log] == \
+            [(s["solid_newton"], s["fluid_newton"], s["krylov"])
+             for s in b.step_log]
+
+
 # -- the dense, stencil and multigrid modules on the card, against the same
 # code on the CPU (the CPU side is held against the JAX package by the
 # test_torch_{dense,stencil,multigrid,precond_*} files).  f64 to 1e-12
 # for single applies and 1e-10 for V-cycles and preconditioner applies
-# (index_add_'s atomics reorder the sums); bf16 GEMV to 2**-7.  Where a
+# (the card's planned sums and the CPU's index_add_ sum in different
+# orders); bf16 GEMV to 2**-7.  Where a
 # GalerkinMG cycle runs, 1e-5: its coarse inverse is a float32 Newton-Schulz
 # iteration by design, and cuBLAS and the CPU sum its products in another
 # order.
@@ -612,7 +696,7 @@ def test_mpi_kernels_and_rk4_cuda_match_cpu(cuda):
     """Each _MPIKernels function and one SharedHypoElasticity RK4 step on
     a seeded state of the truncated wall3d: the indicator and the
     Dirichlet mask equal, the rest within 1e-12 (the particle scatters
-    are atomics on CUDA)."""
+    sum in another order on CUDA)."""
     from openifem_tpu_torch.cases.fsi_wall_3d import TRUNCATED, wall3d_case
 
     def setup(dev):
@@ -777,8 +861,8 @@ def test_refine_and_restart_on_the_card(cuda, tmp_path, monkeypatch):
     """The coarse leaflet through FSI.run with interface refinement and a
     checkpoint every 2 steps: 4 steps on the card against the CPU (equal
     meshes and Newton counts, 1e-6), then a restart on the card from the
-    step-2 checkpoints to step 4 against the uninterrupted card run
-    (1e-10: the card's index_add_ rounds differently from run to run)."""
+    step-2 checkpoints to step 4 against the uninterrupted card run: equal
+    to the bit (the card sums every scatter in a fixed order)."""
     import glob
     import shutil
     monkeypatch.chdir(tmp_path)
@@ -816,10 +900,9 @@ def test_refine_and_restart_on_the_card(cuda, tmp_path, monkeypatch):
     r.resume(verbose=False)
     os.chdir(tmp_path)
     assert r.time.get_timestep() == 4
-    assert rel_err(r.fluid.present_solution.cpu(),
-                   g.fluid.present_solution.cpu()) <= 1e-10
-    assert rel_err(r.solid.current_displacement.cpu(),
-                   g.solid.current_displacement.cpu()) <= 1e-10
+    assert torch.equal(r.fluid.present_solution, g.fluid.present_solution)
+    assert torch.equal(r.solid.current_displacement,
+                       g.solid.current_displacement)
 
 
 # -- parallel/shard.py on the card: the dry run's checks at world size 1
