@@ -36,7 +36,6 @@ one packed vector per step.
 from __future__ import annotations
 
 import os
-from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -44,6 +43,7 @@ import torch
 from ..fe.shapes import QkShapes, gauss_quadrature
 from ..mesh.mesh import FACE_VERTICES
 from ..solvers.fluid.supg import ATM, CP_TO_CV
+from ..utils.timer import span as trace_span
 from .interp import interpolate_nodal, invert_bilinear
 from .mpi_fsi import MPIFSI
 
@@ -633,7 +633,7 @@ class ControlVolumeFSI(MPIFSI):
 
     # ------------------------------------------------------------------
     def _after_step(self):
-        span = self.step_span or (lambda name: nullcontext())
+        span = self.step_span or trace_span
         if self._cv_bounds is not None:
             with span("CV analysis"):
                 self.control_volume_analysis()

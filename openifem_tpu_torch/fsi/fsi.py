@@ -422,6 +422,10 @@ class FSI:
             tm.update_eddy_viscosity()
         self._setup_coupling()
 
+    def _wait_for_device(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _sync_coupling(self):
         """Rebuild the coupling tables when either mesh changed since they
         were built (a LinearElasticity solid refines itself inside FSI
@@ -523,13 +527,15 @@ class FSI:
             coupled = fuse and not first_step and self._can_fuse_step()
             retries = 0
             if coupled:
+                # the scope holds the wait for the device: the step's time,
+                # not its enqueue
                 with self.timer.scope("Coupled device step"):
                     self.run_one_coupled_step(verbose)
+                    self._wait_for_device()
             else:
                 retries = self._run_phases(first_step, verbose)
                 first_step = False
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                self._wait_for_device()
             entry = dict(
                 step=self.time.get_timestep() + 1, coupled=coupled,
                 solid_newton=getattr(self.solid, "newton_iters", None),

@@ -39,7 +39,6 @@ the fluid around the solid at `Refinement interval` with levels
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -49,6 +48,7 @@ from ..fe.fevalues import _geometry_jacobians
 from ..la.operators import add_at
 from ..mesh.mesh import FACE_VERTICES
 from ..solvers.fluid.supg import SUPGFluidSolver
+from ..utils.timer import span as trace_span
 from .fsi import FSI, _same_meshes
 from .interp import interpolate_nodal
 
@@ -61,7 +61,8 @@ class MPIFSI(FSI):
         # coupled step's "solid RK4", "coupling" and "fluid Newton"; the
         # per-phase step's "solid", "coupling", "SA" (a turbulence model's
         # rows and solve) and "fluid Newton"; ControlVolumeFSI's "CV
-        # analysis".  A profiler's hook
+        # analysis".  A profiler's hook (utils/timer.py DeviceSpans); None
+        # records the parts as utils/timer.py spans while tracing is on
         self.step_span = None
 
     def _can_fuse_step(self):
@@ -91,7 +92,7 @@ class MPIFSI(FSI):
         ref_verts = self._tensor(solid.mesh.vertices)
 
         def step(s_x, s_v, s_sigma, f_sol, f_stress):
-            span = self.step_span or (lambda name: nullcontext())
+            span = self.step_span or trace_span
             with span("coupling"):
                 s_disp = (s_x - ref_verts).reshape(-1)
                 rows, p_nodal, u_nodal = k.solid_bc_rows(s_disp, f_sol,
@@ -387,7 +388,7 @@ class MPIFSI(FSI):
         a turbulence model, its per-step Dirichlet rows from the last
         step's wall distances after the indicator update (:1199-1203), and
         its Newton solve before the fluid's."""
-        span = self.step_span or (lambda name: nullcontext())
+        span = self.step_span or trace_span
         tm = self._tm
         with self.timer.scope("Find solid BC"), span("coupling"):
             self.find_solid_bc()

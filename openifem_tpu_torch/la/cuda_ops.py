@@ -40,6 +40,8 @@ from collections import Counter
 
 import torch
 
+from ..utils.timer import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "element_matvec.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -116,16 +118,18 @@ def _lib():
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build())
-            argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_void_p] + \
-                [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            for name, _ in _DTYPES.values():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _LIB = lib
+            with span("kernel_load"):
+                lib = ctypes.CDLL(build())
+                argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                            ctypes.c_longlong, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p] + [ctypes.c_int] * 7 + \
+                    [ctypes.c_void_p]
+                for name, _ in _DTYPES.values():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIB = lib
     return _LIB
 
 
@@ -138,7 +142,8 @@ def _cached(t, key, make, others=()):
     key = (t._version,) + tuple((id(o), o._version) for o in others) + key
     hit = cache.get(key)
     if hit is None or any(r() is not o for r, o in zip(hit[0], others)):
-        hit = cache[key] = ([weakref.ref(o) for o in others], make())
+        with span("plan_build"):
+            hit = cache[key] = ([weakref.ref(o) for o in others], make())
     return hit[1]
 
 

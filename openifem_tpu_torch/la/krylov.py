@@ -11,6 +11,10 @@ FGMRES uses CGS2 orthogonalization (two classical Gram-Schmidt passes) on
 the device.  The small Hessenberg / Givens state lives on the host in the
 working dtype: the stopping test needs the residual estimate on the host
 every iteration anyway, and the rotations are a handful of scalar flops.
+
+Every read of a device value on the host here is inside
+utils/timer.py::host_read, which traces it as a "sync" span when tracing
+is on.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..utils.timer import host_read
 
 _NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
 
@@ -81,12 +87,18 @@ def cg(op: Callable, b, x0=None, M: Optional[Callable] = None,
         return list(reduce(torch.stack(d)))
     atol = torch.as_tensor(atol, dtype=b.dtype, device=b.device)
 
+    def above(rr):
+        """The loop test: ||r|| > atol, read on the host."""
+        test = torch.sqrt(rr) > atol
+        with host_read("cg_test"):
+            return bool(test)
+
     r = b - op(x)
     z = M(r)
     p = z
     rz, rr = dots((r, z), (r, r))
     k = 0
-    while k < maxiter and bool(torch.sqrt(rr) > atol):
+    while k < maxiter and above(rr):
         Ap = op(p)
         (pAp,) = dots((p, Ap))
         alpha = torch.where(pAp != 0, rz / pAp, 0.0)
@@ -98,7 +110,10 @@ def cg(op: Callable, b, x0=None, M: Optional[Callable] = None,
         p = z + beta * p
         rz = rz_new
         k += 1
-    return SolveResult(x=x, iters=k, residual=float(torch.sqrt(rr)))
+    res = torch.sqrt(rr)
+    with host_read("cg_residual"):
+        res = float(res)
+    return SolveResult(x=x, iters=k, residual=res)
 
 
 def _back_substitute(H, g, k):
@@ -122,7 +137,9 @@ def _fgmres_cycle(op, M, x0, b, atol, restart: int, weight=None,
     w8 = _weighted(weight, b.dtype)
     red = (lambda h: h) if reduce is None else reduce  # noqa: E731
     r0 = b - op(x0)
-    beta = ndt(_wnorm(r0, w8, reduce).item())
+    beta = _wnorm(r0, w8, reduce)
+    with host_read("fgmres_norm"):
+        beta = ndt(beta.item())
 
     V = torch.zeros((restart + 1,) + tuple(b.shape), dtype=b.dtype,
                     device=b.device)
@@ -151,7 +168,9 @@ def _fgmres_cycle(op, M, x0, b, atol, restart: int, weight=None,
         wn = _wnorm(w, w8, reduce)
         V[k + 1] = torch.where(wn > 0, w / torch.where(wn > 0, wn, 1.0),
                                0.0)
-        hw = torch.cat([h1 + h2, wn.reshape(1)]).cpu().numpy()
+        hw = torch.cat([h1 + h2, wn.reshape(1)])
+        with host_read("fgmres_hcol"):
+            hw = hw.cpu().numpy()
         Hcol = np.zeros(restart + 1, dtype=ndt)
         Hcol[:k + 1] = hw[:k + 1]
         Hcol[k + 1] = hw[k + 1]
@@ -193,10 +212,14 @@ def fgmres(op: Callable, b, x0=None, M: Optional[Callable] = None,
     if M is None:
         M = lambda v: v  # noqa: E731
     ndt = _NP_DTYPE[b.dtype]
-    atol = ndt(float(atol))
+    if isinstance(atol, torch.Tensor):
+        with host_read("fgmres_atol"):
+            atol = float(atol)
+    atol = ndt(atol)
     x = x0
-    res = ndt(_wnorm(b - op(x0), _weighted(weight, b.dtype),
-                     reduce).item())
+    res = _wnorm(b - op(x0), _weighted(weight, b.dtype), reduce)
+    with host_read("fgmres_norm"):
+        res = ndt(res.item())
     total_k, cyc = 0, 0
     while res > atol and cyc < max_restarts:
         x, res, k = _fgmres_cycle(op, M, x, b, atol, restart, weight,

@@ -12,6 +12,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..utils.timer import span
 from .manifolds import (CylindricalManifold, PolarManifold,
                         SphericalManifold, TransfiniteManifold)
 from .mesh import FACE_VERTICES, Mesh
@@ -413,34 +414,35 @@ def flow_around_cylinder(dim: int = 2) -> Mesh:
     """Boundary ids: 2D: 0 inflow(x=0), 1 outflow(x=2.2), 2 bottom, 3 top,
     4 cylinder (reference: source/utilities.cpp:490-530).
     3D: 0/1 x, 2/3 y, 4/5 z, 6 cylinder."""
-    if dim == 2:
-        m = flow_around_cylinder_2d(True)
-        _assign_cylinder_boundary_ids(m, x_lo=0.0, cyl_id=4)
+    with span("mesh"):
+        if dim == 2:
+            m = flow_around_cylinder_2d(True)
+            _assign_cylinder_boundary_ids(m, x_lo=0.0, cyl_id=4)
+            return m
+        m2 = flow_around_cylinder_2d(False)
+        m = extrude(m2, 9, 0.41)
+        m.manifolds = dict(m2.manifolds)
+        for c in range(m.n_cells):
+            for f in range(6):
+                if m.boundary_id[c, f] < 0:
+                    continue
+                fc = m.vertices[[m.cells[c, v]
+                                 for v in FACE_VERTICES[3][f]]].mean(axis=0)
+                if abs(fc[0] - 2.2) < 1e-12:
+                    m.boundary_id[c, f] = 1
+                elif abs(fc[0] + 0.3) < 1e-12:
+                    m.boundary_id[c, f] = 0
+                elif abs(fc[1] - 0.41) < 1e-12:
+                    m.boundary_id[c, f] = 3
+                elif abs(fc[1]) < 1e-12:
+                    m.boundary_id[c, f] = 2
+                elif abs(fc[2] - 0.41) < 1e-12:
+                    m.boundary_id[c, f] = 5
+                elif abs(fc[2]) < 1e-12:
+                    m.boundary_id[c, f] = 4
+                else:
+                    m.boundary_id[c, f] = 6
         return m
-    m2 = flow_around_cylinder_2d(False)
-    m = extrude(m2, 9, 0.41)
-    m.manifolds = dict(m2.manifolds)
-    for c in range(m.n_cells):
-        for f in range(6):
-            if m.boundary_id[c, f] < 0:
-                continue
-            fc = m.vertices[[m.cells[c, v]
-                             for v in FACE_VERTICES[3][f]]].mean(axis=0)
-            if abs(fc[0] - 2.2) < 1e-12:
-                m.boundary_id[c, f] = 1
-            elif abs(fc[0] + 0.3) < 1e-12:
-                m.boundary_id[c, f] = 0
-            elif abs(fc[1] - 0.41) < 1e-12:
-                m.boundary_id[c, f] = 3
-            elif abs(fc[1]) < 1e-12:
-                m.boundary_id[c, f] = 2
-            elif abs(fc[2] - 0.41) < 1e-12:
-                m.boundary_id[c, f] = 5
-            elif abs(fc[2]) < 1e-12:
-                m.boundary_id[c, f] = 4
-            else:
-                m.boundary_id[c, f] = 6
-    return m
 
 
 def _assign_cylinder_boundary_ids(m: Mesh, x_lo: float, cyl_id: int):

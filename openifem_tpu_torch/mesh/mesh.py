@@ -19,6 +19,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from ..utils.timer import span
 from .manifolds import FlatManifold
 
 # face -> local vertex indices (deal.II GeometryInfo)
@@ -132,8 +133,9 @@ class Mesh:
     # refinement
     def refine_global(self, n: int = 1) -> "Mesh":
         m = self
-        for _ in range(n):
-            m = m._refine(np.ones(m.n_cells, dtype=bool))
+        with span("mesh"):
+            for _ in range(n):
+                m = m._refine(np.ones(m.n_cells, dtype=bool))
         return m
 
     def refine(self, flags: np.ndarray) -> "Mesh":

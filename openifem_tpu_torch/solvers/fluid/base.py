@@ -24,6 +24,7 @@ from ...la.operators import index_sum
 from ...parameters import (AllParameters, component_flag_to_mask,
                            component_flag_values)
 from ...utils.timectl import Time
+from ...utils.timer import host_read, span
 
 
 class WholeLayout:
@@ -108,18 +109,21 @@ class FluidSolverBase:
         """Dispatch the outer FGMRES, optionally with an f32 Krylov basis
         (f32_outer).  Returns (x_in_b_dtype, iters, residual)."""
         from ...la.krylov import fgmres
-        if self.f32_outer:
-            atol = max(float(atol), self.f32_outer_floor *
-                       torch.linalg.vector_norm(b).item())
-            op32 = lambda x: op(x).to(torch.float32)  # noqa: E731
-            res = fgmres(op32, b.to(torch.float32), M=precond, atol=atol,
+        with span("outer_fgmres"):
+            if self.f32_outer:
+                b_norm = torch.linalg.vector_norm(b)
+                with host_read("outer_norm"):
+                    b_norm = b_norm.item()
+                atol = max(float(atol), self.f32_outer_floor * b_norm)
+                op32 = lambda x: op(x).to(torch.float32)  # noqa: E731
+                res = fgmres(op32, b.to(torch.float32), M=precond,
+                             atol=atol, restart=self.outer_restart,
+                             max_restarts=self.outer_max_restarts)
+                return res.x.to(b.dtype), res.iters, res.residual
+            res = fgmres(op, b, M=precond, atol=atol,
                          restart=self.outer_restart,
                          max_restarts=self.outer_max_restarts)
-            return res.x.to(b.dtype), res.iters, res.residual
-        res = fgmres(op, b, M=precond, atol=atol,
-                     restart=self.outer_restart,
-                     max_restarts=self.outer_max_restarts)
-        return res.x, res.iters, res.residual
+            return res.x, res.iters, res.residual
 
     def _outer_atol(self, res_norm: float, res0, parity_atol: float):
         """Outer-FGMRES absolute tolerance for one Newton iteration.

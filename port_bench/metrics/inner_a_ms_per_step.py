@@ -1,0 +1,11 @@
+"""Host wall time of the preconditioner's inner A-solves per time step, in
+ms: the program's "inner_a" spans (the stencil FGMRES, the element FGMRES
+or the velocity V-cycles of each preconditioner apply), inclusive, over a
+replay of the segment under the program's tracer alone (spanrun.py), over
+its steps."""
+
+import spanrun
+
+
+def read(ctx):
+    return spanrun.per_step_ms(ctx, "inner_a")

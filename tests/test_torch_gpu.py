@@ -12,6 +12,7 @@ absent (--noconftest skips tests/conftest.py, which sets JAX up):
 
 import os
 from collections import Counter
+from contextlib import nullcontext
 
 import numpy as np
 import pytest
@@ -494,6 +495,61 @@ def test_cylinder_stepper_cuda_matches_cpu(cuda):
     # value; on the CPU no tensor is a CUDA tensor
     assert gsyncs >= krylov > 0
     assert csyncs == 0
+
+
+def test_tracer_spans_on_the_profilers_clock(cuda, profiler):
+    """A kernel launched inside a span and waited for there lies inside
+    the span's interval in torch.profiler's trace, within 50 us: the
+    tracer's clock is the profiler's."""
+    from torch.profiler import ProfilerActivity, profile
+    from openifem_tpu_torch.utils import timer
+    with timer.recording() as rec, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with timer.span("sleep"):
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+    (s,) = rec.spans
+    (kernel,) = [e for e in prof.profiler.kineto_results.events()
+                 if "cuda" in str(e.device_type()).lower()]
+    start, dur = kernel.start_ns(), kernel.duration_ns()
+    assert dur > 1_000_000, dur       # a kernel of milliseconds
+    slack = 50_000
+    assert s.start_ns - slack <= start, (s, start)
+    assert start + dur <= s.end_ns + slack, (s, start + dur)
+
+
+def test_tracer_adds_no_sync_and_no_kernel(cuda):
+    """The cylinder stepper at refine 1 with the "r3" bench knobs reads as
+    many device values on the host, runs the same torch operations (so it
+    launches the same kernels) and as many element-matvec kernels with
+    tracing on as with it off, and gives the same bits.  The operations
+    are counted on the host, in torch.profiler's CPU trace: its device
+    trace of a window of tens of thousands of kernels can lose a record."""
+    from torch.profiler import ProfilerActivity, profile
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.utils import timer
+    from openifem_tpu_torch.utils.timer import count_host_syncs
+    fl = fc.cylinder_case(port_package(), "r3", refine=1, n_steps=10,
+                          device=cuda)
+    fl.run_one_step(True, verbose=False)
+    stepper, x0 = fl.make_on_device_stepper(), fl.present_solution.clone()
+    stepper(x0, 1)                     # plans and caches outside the reads
+
+    def window(traced):
+        before = cuda_ops.launches.copy()
+        with count_host_syncs() as syncs, (
+                timer.recording() if traced else nullcontext()), \
+                profile(activities=[ProfilerActivity.CPU]) as prof:
+            x = stepper(x0, 1)[0]
+        ops = Counter(e.name for e in prof.events())
+        return x, syncs["syncs"], ops, cuda_ops.launches - before
+
+    x_off, syncs_off, ops_off, launches_off = window(False)
+    x_on, syncs_on, ops_on, launches_on = window(True)
+    assert torch.equal(x_off, x_on)
+    assert syncs_on == syncs_off > 0
+    assert ops_on == ops_off and sum(ops_on.values()) > 0
+    assert launches_on == launches_off and launches_on
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["f64", "f32_precond"])
