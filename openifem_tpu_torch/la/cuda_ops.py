@@ -20,7 +20,9 @@ contiguity, allocates y with torch.empty, makes one ctypes call on
 PyTorch's current stream, raises if the kernel returned an error, and
 counts the launch in `launches` under (layout, dtype name, number of
 cells, block rows, block columns), so that a caller can tell which shapes
-a run launched.
+a run launched.  A replayed CUDA graph (la/krylov.py BlockGraphs)
+launches without calling it: BlockGraphs takes a capture's counts back
+out and adds them on every replay, so `launches` holds what ran.
 la/operators.py calls it for CUDA tensors; there is no fallback to the
 plain version.  `emulate` is the kernel's index arithmetic in plain
 PyTorch, for the tests.

@@ -481,20 +481,26 @@ class StencilOperator:
         return apply
 
     # -- per-Newton weight build ----------------------------------------
-    def build_weights(self, Ab):
+    def build_weights(self, Ab, out=None):
         """Element node-blocks (n_c, nl, d_out, nl, d_in) -> per-group
         stencil tensors [(S^dim, d_out, d_in, n_b, M)], own-brick
         contributions only, zero on the k-wide border rows.
 
         Accumulation happens in PHASE-MAJOR coordinates (node i = k*ci + a
         stored at [a % k, ci + a // k]), where each of the (k+1)^(2 dim)
-        slice-adds is a contiguous slab; one transpose/reshape interleaves
-        the phases back to the bordered grid layout at the end."""
+        slice-adds is a contiguous slab; one strided copy interleaves the
+        phases into the bordered grid layout at the end.
+
+        out: the tensors of an earlier build, overwritten in place (their
+        borders are zero and stay so), or None for new ones."""
         k, dim, S = self.k, self.dim, self.S
         d_out, d_in = Ab.shape[2], Ab.shape[4]
         nl = (k + 1) ** dim
-        Ws = []
-        for g, perm in zip(self._groups, self._perm):
+        if out is None:
+            out = tuple(torch.zeros((S ** dim, d_out, d_in, g.n_b, g.M),
+                                    dtype=Ab.dtype, device=Ab.device)
+                        for g in self._groups)
+        for g, perm, W in zip(self._groups, self._perm, out):
             Ec = Ab[perm].reshape((g.n_b,) + g.m + (nl, d_out, nl, d_in))
             ph_shape = (S ** dim, d_out, d_in, g.n_b)
             for t in range(dim):
@@ -518,19 +524,20 @@ class StencilOperator:
                         ai, ao = a[t] % k, a[t] // k
                         idx += (ai, slice(ao, ao + g.m[t]))
                     Wph[idx] += blk
-            # interleave phases -> grid rows i = k*ci' + a' (ci' major),
-            # trim the phase padding to G, add the k-wide border
+            # grid rows i = k*ci' + a' (ci' major) of the bordered grid:
+            # rows k .. k + k*(m+1) hold the G interior rows and k - 1
+            # border rows that no phase slot reaches (they stay zero)
+            Wg = W.reshape((S ** dim, d_out, d_in, g.n_b) + g.Gp)
+            Wg = Wg[(Ellipsis,) + tuple(slice(k, k + k * (g.m[t] + 1))
+                                        for t in range(dim))]
+            Wg = Wg.unflatten(4, (g.m[0] + 1, k))
+            for t in range(1, dim):
+                Wg = Wg.unflatten(4 + 2 * t, (g.m[t] + 1, k))
             axes = [0, 1, 2, 3]
             for t in range(dim):
                 axes += [4 + 2 * t + 1, 4 + 2 * t]
-            Wg = Wph.permute(axes).reshape(
-                (S ** dim, d_out, d_in, g.n_b) +
-                tuple(k * (g.m[t] + 1) for t in range(dim)))
-            Wg = Wg[(Ellipsis,) + tuple(slice(0, g.G[t])
-                                        for t in range(dim))]
-            Wg = F.pad(Wg, (k, k) * dim)
-            Ws.append(Wg.reshape(S ** dim, d_out, d_in, g.n_b, g.M))
-        return tuple(Ws)
+            Wg.copy_(Wph.permute(axes))
+        return tuple(out)
 
     # -- apply ------------------------------------------------------------
     def combine(self, Y):

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ...config import index_dtype, real_dtype
-from ...la.krylov import cg, fgmres
+from ...la.krylov import BlockGraphs, cg, fgmres
 from ...la.operators import (element_diag, element_matvec,
                              element_matvec_nodeblock,
                              element_matvec_p_to_u_nodeblock,
@@ -36,7 +36,23 @@ from ...la.operators import (element_diag, element_matvec,
                              element_matvec_u_to_p_nodeblock, index_sum,
                              scatter_add)
 from ...utils.timer import host_read, span
-from .base import FluidSolverBase, condensed
+from .base import WHOLE, FluidSolverBase, condensed
+
+
+def _buffer(bufs, name, like):
+    """The tensor `name` of the dict `bufs`, made empty like `like` (dense)
+    on first use."""
+    buf = bufs.get(name)
+    if buf is None:
+        buf = bufs[name] = torch.empty_like(like)
+    return buf
+
+
+def _on_card(device) -> bool:
+    """Whether the preconditioner's inner solves take iteration blocks
+    (InsIM._inner_graphs): on a CUDA device.  Monkeypatched to True, the
+    blocks run uncaptured on the CPU."""
+    return device.type == "cuda"
 
 
 class InsIM(FluidSolverBase):
@@ -80,6 +96,8 @@ class InsIM(FluidSolverBase):
     # run the whole block-Schur preconditioner in float32 (flexible outer:
     # changes only iteration counts, never the converged f64 solution)
     mixed_precision_precond = False
+    # the inner solves' buffers and graphs (_inner_graphs)
+    _inner = None
 
     def setup(self):
         assert (self.params.fluid_velocity_degree -
@@ -90,6 +108,7 @@ class InsIM(FluidSolverBase):
             # drop them (re-enable with a fresh hierarchy after setup)
             self._pressure_mg = None
             self._velocity_mg = None
+            self._inner = None
             super().setup()
             self._precompute()
 
@@ -282,8 +301,9 @@ class InsIM(FluidSolverBase):
 
     # ------------------------------------------------------------------
     def _assemble(self, eval_pt, present, indicator, fsi_acc, fsi_stress,
-                  fsi_acc_nodal):
-        """Element Newton matrix + rhs at evaluation point.
+                  fsi_acc_nodal, out=None):
+        """Element Newton matrix + rhs at evaluation point; the matrix is
+        written into `out` where one is given.
 
         Weak form: reference source/mpi_insim.cpp:263-304."""
         params = self.params
@@ -317,10 +337,13 @@ class InsIM(FluidSolverBase):
         g_uc = torch.einsum("cqmx,cqx->cqm", gu_m, uc_m)
         conv2 = torch.einsum("ql,cqm,cq->clm", Nu_m, g_uc, JxW_m)
         conv = torch.einsum("clm,ab->clamb", rho * conv2, I_m)
-        conv = conv + rho * torch.einsum("ql,qm,cqab,cq->clamb", Nu_m, Nu_m,
-                                         guc_m, JxW_m)
+        # in place: the same products and sums with two of the cell-sized
+        # temporaries alive, not four
+        conv.add_(torch.einsum("ql,qm,cqab,cq->clamb", Nu_m, Nu_m, guc_m,
+                               JxW_m).mul_(rho))
         conv = conv.reshape(n_c, self.nu_loc, self.nu_loc)
-        A_loc = self._A_const.clone()
+        A_loc = self._A_const.clone() if out is None else \
+            out.copy_(self._A_const)
         A_loc[:, :self.nu_loc, :self.nu_loc] += conv
 
         # RHS (negative residual)
@@ -373,6 +396,30 @@ class InsIM(FluidSolverBase):
             return "cg"
         return "vcycle" if self.mg_direct else "cg+vcycle"
 
+    def _inner_graphs(self, lay, ucons, pcons):
+        """The buffers and BlockGraphs sites ("mp", "sm", "a") of the
+        preconditioner's inner solves, as (key, buffers, sites), or None
+        where they run the eager loops: off the card, on a rank's view
+        (parallel/shard.py), in the dense branch, and under constraint
+        sets other than the solver's own (a coupled FSI step makes new
+        ones every step).  One set serves every Newton iteration while
+        what the inner operators read outside the buffers stays: the
+        V-cycles, the stencil, the cell tables (setup() drops the set)
+        and the knobs baked into the closures."""
+        if lay is not WHOLE or not _on_card(self.device) or \
+                self.dense_precond or ucons is not self.u_constraints or \
+                pcons is not self.p_constraints:
+            return None
+        key = (ucons, pcons, self._pressure_mg, self._u_stencil,
+               self.a_poly, self.a_poly_omega, self.mixed_precision_precond)
+        inner = self._inner
+        if inner is None or any(a is not b for a, b in zip(inner[0], key)):
+            pool = torch.cuda.graph_pool_handle() \
+                if self.device.type == "cuda" else None
+            inner = self._inner = (key, {}, {n: BlockGraphs(pool)
+                                             for n in ("mp", "sm", "a")})
+        return inner
+
     def _make_preconditioner(self, A_loc, ucons, pcons):
         """Grad-Div block-Schur right preconditioner (reference:
         source/insim.cpp:55-120).
@@ -383,9 +430,26 @@ class InsIM(FluidSolverBase):
         apply and diagonal covers the rank's cells and is summed over the
         ranks into the rank's piece; the branches that need every cell's
         block (dense, the V-cycle builds, the stencil) gather the blocks
-        (gather_cells) and build their operator whole on every rank."""
+        (gather_cells) and build their operator whole on every rank.
+
+        On the card with whole vectors (_inner_graphs) the tensors the
+        inner solves read are the solver's buffers, written in place each
+        Newton iteration, and the inner Mp CG, the Schur CG (Jacobi or
+        geometric V-cycle) and the stencil A-solve run their iterations as
+        replayed CUDA graphs (la/krylov.py BlockGraphs)."""
         from ...la.multigrid import GalerkinMG
         lay = self.rank_layout
+        inner = self._inner_graphs(lay, ucons, pcons)
+        bufs, sites = (None, {}) if inner is None else inner[1:]
+
+        def kept(name, t, once=False):
+            """t in the buffer `name`: written in place, or only when
+            first made with once=True; t itself without buffers."""
+            if bufs is None:
+                return t
+            if once and name in bufs:
+                return bufs[name]
+            return _buffer(bufs, name, t).copy_(t)
         # every cell's tables (the solver itself, or a rank view's solver)
         whole = lay.whole or self
         params = self.params
@@ -396,7 +460,7 @@ class InsIM(FluidSolverBase):
 
         pdt = torch.float32 if self.mixed_precision_precond else A_loc.dtype
         A_loc = A_loc.to(pdt)
-        Mp_loc = self.Mp_loc.to(pdt)
+        Mp_loc = kept("Mp_loc", self.Mp_loc.to(pdt), once=True)
         Mu_diag = self.Mu_diag.to(pdt)
         Mp_diag = self.Mp_diag.to(pdt)
 
@@ -418,6 +482,17 @@ class InsIM(FluidSolverBase):
         Auu_b = Auu.reshape(n_c, nlu, d, nlu, d)
         Apu_b = Apu.reshape(n_c, nlp, nlu, d)
         Aup_b = Aup.reshape(n_c, nlu, d, nlp)
+        sm_branch = self.sm_solve_branch()
+        mg = self._pressure_mg
+        # the inner solves whose operators read only the buffers and
+        # tensors that outlive this build: the Schur CG reads B and B^T,
+        # views of the assembly's buffer (_newton_iter_impl) or, where
+        # A_loc is a copy in another dtype, buffers of their own
+        mp_graphs = sites.get("mp")
+        sm_graphs = sites.get("sm") if sm_branch != "vcycle" and \
+            not isinstance(mg, GalerkinMG) else None
+        if sm_graphs is not None and A_loc is not bufs.get("A_loc"):
+            Apu_b, Aup_b = kept("Apu_b", Apu_b), kept("Aup_b", Aup_b)
 
         op_A = condensed(lay, ucons, lambda x: element_matvec_nodeblock(
             Auu_b, cn_u, n_un, x))
@@ -460,7 +535,7 @@ class InsIM(FluidSolverBase):
         # mu_inv of every dof (the cell-local products read it through
         # cd_u) and of the rank's piece
         mu_inv = torch.where(Mu_diag != 0, 1.0 / Mu_diag, 1.0)
-        mu_inv_r = lay.piece(mu_inv)
+        mu_inv_r = kept("mu_inv_r", lay.piece(mu_inv), once=True)
 
         def op_Sm(xp):
             y = apply_B(mu_inv_r * apply_BT(xp))
@@ -470,12 +545,13 @@ class InsIM(FluidSolverBase):
         # diagonal of B diag(Mu)^-1 B^T
         sm_diag_loc = torch.einsum("cnk,ck,cnk->cn", Apu, mu_inv[cd_u], Apu)
         sm_diag = lay.scatter(scatter_add(self.n_p, cd_p, sm_diag_loc))
-        sm_dinv = torch.where(
-            sm_diag > 0, 1.0 / torch.where(sm_diag > 0, sm_diag, 1.0), 1.0)
+        sm_dinv = kept("sm_dinv", torch.where(
+            sm_diag > 0, 1.0 / torch.where(sm_diag > 0, sm_diag, 1.0), 1.0))
 
         op_Mp = condensed(lay, pcons, lambda x: element_matvec(
             Mp_loc, cd_p, self.n_p, x))
-        mp_dinv = lay.piece(torch.where(Mp_diag != 0, 1.0 / Mp_diag, 1.0))
+        mp_dinv = kept("mp_dinv", lay.piece(
+            torch.where(Mp_diag != 0, 1.0 / Mp_diag, 1.0)), once=True)
 
         if self.dense_precond:
             # dense condensed inner operators (la/dense.py): exactly the
@@ -517,7 +593,6 @@ class InsIM(FluidSolverBase):
             sm_dinv = torch.where(
                 dS > 0, 1.0 / torch.where(dS > 0, dS, 1.0), 1.0)
 
-        mg = self._pressure_mg
         if isinstance(mg, GalerkinMG):
             # cell-local mass-Schur blocks of THIS Newton matrix
             sm_loc = torch.einsum("cik,ck,cjk->cij", Apu, mu_inv[cd_u], Apu)
@@ -563,14 +638,18 @@ class InsIM(FluidSolverBase):
         a_branch = self.a_solve_branch(ucons)
         st = self._u_stencil
         if a_branch in ("stencil", "stencil_flat"):
-            W_st = st.build_weights(lay.gather_cells(Auu_b))
+            W_st = st.build_weights(
+                lay.gather_cells(Auu_b),
+                out=None if bufs is None else bufs.get("W_st"))
+            if bufs is not None:
+                bufs["W_st"] = W_st
         if a_branch == "stencil":
-            fix_st = st.spread_mask(ucons.fixed)
-            w_st = st.weight(pdt)
+            fix_st = kept("fix_st", st.spread_mask(ucons.fixed), once=True)
+            w_st = kept("w_st", st.weight(pdt), once=True)
             if self.a_block_jacobi:
                 a_M_st = st.spread_blockdiag(Dinv)
             else:
-                dinv_st = st.spread(dinv_A)
+                dinv_st = kept("dinv_st", st.spread(dinv_A))
                 a_M_st = lambda r: r * dinv_st       # noqa: E731
 
             def op_st(x):
@@ -581,7 +660,6 @@ class InsIM(FluidSolverBase):
             a_M = _poly_wrap(a_M, op_A)
         elif vmg is None:
             a_M = _poly_wrap(a_M, op_A)
-        sm_branch = self.sm_solve_branch()
         self.precond_branches[(a_branch, sm_branch)] += 1
 
         counts = self.krylov_iters
@@ -596,7 +674,8 @@ class InsIM(FluidSolverBase):
             atol_p = torch.clamp(self.mp_sm_rtol * lay.norm(vp), min=1e-10)
             with span("inner_mp"):
                 mp = cg(op_Mp, vp, M=lambda r: r * mp_dinv, atol=atol_p,
-                        maxiter=self.mp_cg_maxiter, reduce=reduce)
+                        maxiter=self.mp_cg_maxiter, reduce=reduce,
+                        graphs=mp_graphs)
             tmp = mp.x * (-(nu_visc + gamma * rho))
             with span("inner_sm"):
                 if sm_branch == "vcycle":
@@ -605,7 +684,8 @@ class InsIM(FluidSolverBase):
                     sm_x, sm_it = sm_M(vp), 0
                 else:
                     sm = cg(op_Sm, vp, M=sm_M, atol=atol_p,
-                            maxiter=self.schur_cg_maxiter, reduce=reduce)
+                            maxiter=self.schur_cg_maxiter, reduce=reduce,
+                            graphs=sm_graphs)
                     sm_x, sm_it = sm.x, sm.iters
             dst_p = sm_x * (-rho / dt) + tmp
             utmp = vu - apply_BT(dst_p)
@@ -625,7 +705,9 @@ class InsIM(FluidSolverBase):
                     au = fgmres(op_st, st.spread(utmp), M=a_M_st,
                                 atol=atol_u, restart=self.a_inner_restart,
                                 max_restarts=self.a_inner_restarts,
-                                weight=w_st)
+                                weight=w_st,
+                                graphs=None if self.a_block_jacobi
+                                else sites.get("a"))
                     au_x, au_it = st.unspread(au.x), au.iters
                 else:
                     atol_u = self.a_inner_rtol * lay.norm(utmp)
@@ -648,11 +730,19 @@ class InsIM(FluidSolverBase):
                           res0=None):
         """One Newton iteration: assemble, condense, FGMRES.  Returns
         (du, res_norm, outer_iters, outer_residual)."""
+        # a rank's cells only when parallel/shard.py shards the solver
+        lay = self.rank_layout
+        inner = self._inner_graphs(lay, ucons, pcons)
         with span("newton"):
             with span("assemble"):
+                # with the inner graphs the blocks go to a buffer, whose
+                # B and B^T views the Schur CG's graphs read (a rank
+                # view's _assemble takes no `out`)
+                out = {} if inner is None else \
+                    dict(out=_buffer(inner[1], "A_loc", self._A_const))
                 A_loc, rhs = self._assemble(eval_pt, present, indicator,
                                             fsi_acc, fsi_stress,
-                                            fsi_acc_nodal)
+                                            fsi_acc_nodal, **out)
                 b = cons.condense_rhs(rhs)
                 res_norm = torch.linalg.vector_norm(b)
                 with host_read("newton_res"):
@@ -663,8 +753,6 @@ class InsIM(FluidSolverBase):
             nlu = self.nu_loc // self.dim
             mdt = torch.float32 if self.f32_matrix else A_loc.dtype
             A_op = A_loc.to(mdt)
-            # a rank's cells only when parallel/shard.py shards the solver
-            lay = self.rank_layout
 
             def apply_A(x):
                 y = element_matvec_taylor_hood(
@@ -712,8 +800,10 @@ class InsIM(FluidSolverBase):
         happens inside.
 
         The JAX package compiles the window into one dispatch; here it is
-        an eager loop on device tensors, and every Krylov iteration still
-        ends in a host synchronisation (la/krylov.py)."""
+        an eager loop on device tensors.  On the card the preconditioner's
+        inner solves replay CUDA graphs of iteration blocks, one host read
+        per block (_inner_graphs); the outer FGMRES still ends every
+        iteration in one (la/krylov.py)."""
         cons = self.zero_constraints
         ucons = self.u_constraints
         pcons = self.p_constraints

@@ -16,7 +16,9 @@ when the recording starts: the clock torch.profiler stamps its host and
 device events with (ns since the epoch), so spans and a profiled run's
 kernels lie on one time line.  `host_read(site)` is the span ("sync")
 around a read of a device value on the host, counted under "sync.<site>";
-every such read on the fluid stepper's path has one.  Span names: set-up
+every such read on the fluid stepper's path has one.  Counters besides:
+"krylov.graph_iters", "krylov.eager_iters" and "krylov.graph_captures"
+(la/krylov.py BlockGraphs).  Span names: set-up
 "mesh", "setup", "pressure_mg", "kernel_load", "plan_build",
 "first_step"; the stepper's "step", "newton" (children "assemble",
 "precond_build", "outer_fgmres"), "inner_mp", "inner_sm", "inner_a" and
@@ -236,9 +238,9 @@ def count_host_syncs(counted=lambda t: t.is_cuda):
     item(), cpu(), tolist(), bool(), float() and int() on a tensor that
     `counted` accepts (default: CUDA tensors).  Yields a dict whose
     "syncs" entry is the running count.  The eager Krylov loops end every
-    iteration in one such call (la/krylov.py), so this is the number a
-    CUDA graph or an on-device stopping test would remove.  float(t) is
-    counted once although torch routes it through item()."""
+    iteration in one such call, the iteration blocks of la/krylov.py every
+    block.  float(t) is counted once although torch routes it through
+    item()."""
     import torch
     out = {"syncs": 0}
     own = vars(torch.Tensor)

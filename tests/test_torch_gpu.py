@@ -491,9 +491,10 @@ def test_cylinder_stepper_cuda_matches_cpu(cuda):
     assert {"element_matvec_taylor_hood", "element_matvec",
             "element_matvec_u_to_p_nodeblock",
             "element_matvec_p_to_u_nodeblock"} <= launched
-    # every Krylov iteration of the window ends in a host read of a device
-    # value; on the CPU no tensor is a CUDA tensor
-    assert gsyncs >= krylov > 0
+    # the inner solves run as replayed graphs of iteration blocks, with
+    # one host read of a device value per block, not one per iteration;
+    # on the CPU no tensor is a CUDA tensor
+    assert 0 < gsyncs < krylov
     assert csyncs == 0
 
 
@@ -550,6 +551,166 @@ def test_tracer_adds_no_sync_and_no_kernel(cuda):
     assert syncs_on == syncs_off > 0
     assert ops_on == ops_off and sum(ops_on.values()) > 0
     assert launches_on == launches_off and launches_on
+
+
+# -- the preconditioner's inner solves as replayed CUDA graphs of iteration
+# blocks (la/krylov.py BlockGraphs, InsIM._inner_graphs), against the
+# eager loops on the card: the same counts and bits.
+
+def _graphs_on(monkeypatch, on):
+    from openifem_tpu_torch.solvers.fluid import insim
+    monkeypatch.setattr(insim, "_on_card",
+                        lambda device: on and device.type == "cuda")
+
+
+def _cylinder_first_step(dev, config, refine):
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    fl = fc.cylinder_case(port_package(), config, refine=refine,
+                          n_steps=10, device=dev)
+    fl.run_one_step(True, verbose=False)
+    return fl
+
+
+@pytest.mark.parametrize("config,refine", [("r3", 2), ("r3", 3),
+                                           ("r4", 2)])
+def test_inner_graphs_match_eager_applies(cuda, monkeypatch, config,
+                                          refine):
+    """Preconditioner applies of two Newton matrices, the second built
+    after the first, with the inner solves as graphs (captured in the host
+    first step, so they replay with each matrix written into the buffers
+    they read) and as eager loops: equal inner counts and bits, apply for
+    apply."""
+    fl = _cylinder_first_step(cuda, config, refine)
+    assert fl._inner is not None
+    x = fl.present_solution
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    states = [x, x + 1e-3 * torch.randn(x.shape, generator=gen,
+                                        device=cuda, dtype=x.dtype)]
+    vs = [torch.randn(x.shape, generator=gen, device=cuda, dtype=x.dtype)
+          for _ in range(3)]
+
+    def applies(on):
+        _graphs_on(monkeypatch, on)
+        out = []
+        for s in states:
+            A_loc, _ = fl._assemble(s, s, fl.indicator, fl.fsi_acceleration,
+                                    fl.fsi_stress_cell, fl.fsi_acc_nodal)
+            P = fl._make_preconditioner(A_loc, fl.u_constraints,
+                                        fl.p_constraints)
+            for v in vs:
+                k0 = dict(fl.krylov_iters)
+                y = P(v)
+                out.append((y, {k: fl.krylov_iters[k] - k0[k]
+                                for k in ("mp", "sm", "a")}))
+        return out
+
+    from openifem_tpu_torch.utils import timer
+    eager = applies(False)
+    with timer.recording() as rec:
+        graphs = applies(True)
+    assert rec.counts["krylov.graph_iters"] > 0
+    assert rec.counts["krylov.eager_iters"] == 0
+    for (ye, ke), (yg, kg) in zip(eager, graphs):
+        assert ke == kg and ke["a"] > 0
+        assert torch.equal(ye, yg)
+
+
+def test_stepper_replay_captures_nothing(cuda, monkeypatch):
+    """A window of the stepper replayed from the state of an earlier one
+    replays the graphs that one captured (no capture, no eager inner
+    iteration) and gives the eager loops' bits and counts."""
+    from openifem_tpu_torch.utils import timer
+    fl = _cylinder_first_step(cuda, "r3", 2)
+    stepper, x0 = fl.make_on_device_stepper(), fl.present_solution.clone()
+
+    def window(on):
+        _graphs_on(monkeypatch, on)
+        k0 = dict(fl.krylov_iters)
+        with timer.recording() as rec:
+            x = stepper(x0, 2)[0]
+        return x, {k: v - k0[k] for k, v in fl.krylov_iters.items()}, \
+            rec.counts
+
+    window(True)
+    x, counts, rec = window(True)
+    assert rec["krylov.graph_captures"] == 0
+    assert rec["krylov.eager_iters"] == 0
+    assert rec["krylov.graph_iters"] == counts["mp"] + counts["sm"] + \
+        counts["a"] > 0
+    x_e, counts_e, _ = window(False)
+    assert torch.equal(x, x_e) and counts == counts_e
+
+
+def test_graph_replays_count_their_launches(cuda, monkeypatch):
+    """cuda_ops.launches over the build, the host first step and a
+    stepper window (where the graphs are captured) and over a second
+    window that only replays them equals the element-matvec launches that
+    ran, counted on the device by an increment beside each launch
+    (captured with it into the graphs): a capture, which launches
+    nothing, adds nothing, and each replay adds its graph's launches."""
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.utils import timer
+    ran = torch.zeros((), dtype=torch.int64, device=cuda)
+    real = cuda_ops.launch
+
+    def launch(*args, **kw):
+        ran.add_(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(cuda_ops, "launch", launch)
+    cuda_ops.reset_launches()
+    fl = _cylinder_first_step(cuda, "r3", 2)
+    stepper, x0 = fl.make_on_device_stepper(), fl.present_solution.clone()
+    stepper(x0, 2)
+    torch.cuda.synchronize()
+    assert sum(cuda_ops.launches.values()) == int(ran) > 0
+    l0, r0 = sum(cuda_ops.launches.values()), int(ran)
+    with timer.recording() as rec:
+        stepper(x0, 2)
+    torch.cuda.synchronize()
+    assert rec.counts["krylov.graph_iters"] > 0
+    assert rec.counts["krylov.graph_captures"] == 0
+    assert sum(cuda_ops.launches.values()) - l0 == int(ran) - r0 > 0
+
+
+def test_clear_cublas_workspaces(cuda):
+    """The private torch call that BlockGraphs makes around each capture
+    is there and frees cuBLAS's cached workspace."""
+    from openifem_tpu_torch.la import krylov
+    a = torch.ones(64, 64, dtype=torch.float64, device=cuda)
+    b = a @ a
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    krylov.clear_cublas_workspaces()
+    assert torch.cuda.memory_allocated() < held
+    assert torch.equal(a @ a, b)
+
+
+@pytest.mark.parametrize("config", ["r3", "r4"])
+def test_inner_graphs_keep_peak_memory(cuda, monkeypatch, config):
+    """torch.cuda.max_memory_allocated() over the build, the host first
+    step (where the graphs are captured) and two stepper windows, at the
+    benchmark's refinement 3: with the graphs at most 1 % above the eager
+    loops'."""
+    import gc
+
+    def peak(on):
+        _graphs_on(monkeypatch, on)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fl = _cylinder_first_step(cuda, config, 3)
+        stepper, x0 = fl.make_on_device_stepper(), fl.present_solution
+        stepper(x0, 1)
+        stepper(x0, 1)
+        torch.cuda.synchronize()
+        out = torch.cuda.max_memory_allocated() - base
+        del fl, stepper, x0
+        return out
+
+    eager, graphs = peak(False), peak(True)
+    assert graphs <= 1.01 * eager, (graphs, eager)
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["f64", "f32_precond"])

@@ -122,3 +122,166 @@ def test_fgmres_zero_rhs_takes_no_iteration():
     op = lambda v: 2.0 * v  # noqa: E731
     res = krylov.fgmres(op, torch.zeros(5, dtype=torch.float64), atol=1e-10)
     assert res.iters == 0 and float(res.x.abs().max()) == 0.0
+
+
+# -- iteration blocks (la/krylov.py _cg_blocks, _blocks): uncaptured
+# on the CPU, the blocks take the eager loops' decisions and give their
+# counts, x and residual to the bit.
+
+class _PastConvergence(krylov.BlockGraphs):
+    """Runs every CG block whose test has failed once more and requires
+    that the second run changes no buffer."""
+    checked = 0
+
+    def run(self, name, fn, device):
+        fn()
+        if name == "next" and not bool(self._buf["status"][0]):
+            before = {k: v.clone() for k, v in self._buf.items()}
+            fn()
+            for k, v in self._buf.items():
+                assert torch.equal(before[k], v), k
+            _PastConvergence.checked += 1
+
+
+def _spd(n=80):
+    g = torch.Generator().manual_seed(4)
+    Q = torch.randn(n, n, generator=g, dtype=torch.float64)
+    A = Q @ Q.T / n + torch.diag(torch.logspace(-2, 1, n,
+                                                dtype=torch.float64))
+    return A, torch.randn(n, generator=g, dtype=torch.float64)
+
+
+def _nonsymmetric(n=120):
+    """1-D convection-diffusion, upwinded: FGMRES needs restarts."""
+    A = (torch.diag(torch.full((n,), 2.6, dtype=torch.float64))
+         - torch.diag(torch.full((n - 1,), 1.5, dtype=torch.float64), -1)
+         - torch.diag(torch.full((n - 1,), 1.0, dtype=torch.float64), 1))
+    g = torch.Generator().manual_seed(5)
+    return A, torch.randn(n, generator=g, dtype=torch.float64)
+
+
+def _cg_case(case):
+    A, b = _spd()
+    M = lambda r: r / torch.diagonal(A)  # noqa: E731
+    op = lambda x: A @ x  # noqa: E731
+    kw = dict(atol=1e-8 * float(torch.linalg.vector_norm(b)), maxiter=500)
+    if case == "cg_maxiter":
+        kw["maxiter"] = krylov.CG_BLOCK + 1
+    elif case == "cg_converged":
+        kw["atol"] = 2.0 * float(torch.linalg.vector_norm(b))
+    eager = krylov.cg(op, b, M=M, **kw)
+    graphs = (_PastConvergence if case == "cg_past_convergence"
+              else krylov.BlockGraphs)()
+    blocks = krylov._cg_blocks(
+        op, b, None, M, torch.as_tensor(kw["atol"], dtype=b.dtype),
+        kw["maxiter"], None, graphs)
+    return eager, blocks, kw
+
+
+def _fgmres_case(case):
+    from openifem_tpu_torch.utils import timer
+    A, b = _nonsymmetric()
+    M = lambda r: r / torch.diagonal(A)  # noqa: E731
+    op = lambda x: A @ x  # noqa: E731
+    restart = krylov.FGMRES_BLOCK + 3       # a shorter last block
+    kw = dict(atol=1e-9, restart=restart, max_restarts=8)
+    if case == "fgmres_restart_boundary":
+        # the estimate after exactly one cycle as atol: convergence at the
+        # cycle's last step
+        kw["atol"] = krylov.fgmres(op, b, M=M, atol=0.0, restart=restart,
+                                   max_restarts=1).residual
+    elif case == "fgmres_max_restarts":
+        kw["atol"] = 0.0
+    elif case == "fgmres_converged":
+        b = torch.zeros_like(b)
+    elif case == "fgmres_weighted":
+        kw["weight"] = (torch.arange(b.numel()) % 5 != 0).double()
+    eager = krylov.fgmres(op, b, M=M, **kw)
+    # a site's first solve is eager, the later ones take the blocks
+    graphs = krylov.BlockGraphs()
+    krylov.fgmres(op, b, M=M, graphs=graphs, **kw)
+    with timer.recording() as rec:
+        blocks = krylov.fgmres(op, b, M=M, graphs=graphs, **kw)
+    assert rec.counts["krylov.eager_iters"] == 0
+    assert rec.counts["krylov.graph_iters"] == blocks.iters
+    return eager, blocks, kw
+
+
+def _cylinder_case(config, monkeypatch):
+    """Preconditioner applies of the cylinder at refine 1 (the stencil
+    A-solve, the Mp CG and, in "r3", the Schur CG with its V-cycle) for
+    two Newton matrices, the blocks (InsIM._inner_graphs, uncaptured)
+    against the eager loops, apply for apply."""
+    from openifem_tpu_torch.cases import fluid_cylinder as fc
+    from openifem_tpu_torch.cases.fsi_leaflet import port_package
+    from openifem_tpu_torch.solvers.fluid import insim
+    from openifem_tpu_torch.utils import timer
+    fl = fc.cylinder_case(port_package(), config, refine=1, n_steps=10,
+                          device="cpu")
+    fl.run_one_step(True, verbose=False)
+    x = fl.present_solution
+    g = torch.Generator().manual_seed(6)
+    states = [x, x + 1e-3 * torch.randn(x.shape, generator=g,
+                                        dtype=x.dtype)]
+    vs = [torch.randn(x.shape, generator=g, dtype=x.dtype)
+          for _ in range(3)]
+
+    def applies(on):
+        monkeypatch.setattr(insim, "_on_card", lambda device: on)
+        out = []
+        for s in states:
+            A_loc, _ = fl._assemble(s, s, fl.indicator, fl.fsi_acceleration,
+                                    fl.fsi_stress_cell, fl.fsi_acc_nodal)
+            P = fl._make_preconditioner(A_loc, fl.u_constraints,
+                                        fl.p_constraints)
+            for v in vs:
+                k0 = dict(fl.krylov_iters)
+                y = P(v)
+                out.append((y, tuple(fl.krylov_iters[k] - k0[k]
+                                     for k in ("mp", "sm", "a"))))
+        return out
+
+    eager = applies(False)
+    with timer.recording() as rec:
+        blocks = applies(True)
+    assert rec.counts["krylov.graph_iters"] > 0
+    return eager, blocks
+
+
+KRYLOV_BLOCK_CASES = ["cg_mid_block", "cg_maxiter", "cg_converged",
+                      "cg_past_convergence", "fgmres_mid_block",
+                      "fgmres_restart_boundary", "fgmres_max_restarts",
+                      "fgmres_converged", "fgmres_weighted",
+                      "cylinder_r3", "cylinder_r4"]
+
+
+@pytest.mark.parametrize("case", KRYLOV_BLOCK_CASES)
+def test_krylov_blocks_match_eager(case, monkeypatch):
+    if case.startswith("cylinder"):
+        eager, blocks = _cylinder_case(case.split("_")[1], monkeypatch)
+        for (ye, ke), (yb, kb) in zip(eager, blocks):
+            assert ke == kb and ke[2] > 0
+            assert torch.equal(ye, yb)
+        return
+    solve = _cg_case if case.startswith("cg") else _fgmres_case
+    checked = _PastConvergence.checked
+    eager, blocks, kw = solve(case)
+    assert eager.iters == blocks.iters
+    assert torch.equal(eager.x, blocks.x)
+    assert eager.residual == blocks.residual
+    block = krylov.CG_BLOCK if case.startswith("cg") else \
+        krylov.FGMRES_BLOCK
+    if case in ("cg_mid_block", "cg_past_convergence",
+                "fgmres_mid_block", "fgmres_weighted"):
+        # converged inside a block, not at its end, after several
+        assert eager.iters > block and eager.iters % block
+    elif case == "cg_maxiter":
+        assert eager.iters == kw["maxiter"]
+    elif case in ("cg_converged", "fgmres_converged"):
+        assert eager.iters == 0
+    elif case == "fgmres_restart_boundary":
+        assert eager.iters == kw["restart"]
+    elif case == "fgmres_max_restarts":
+        assert eager.iters == kw["restart"] * kw["max_restarts"]
+    if case == "cg_past_convergence":
+        assert _PastConvergence.checked == checked + 1
