@@ -178,16 +178,26 @@ and 1 always run):
      sharing the card (gloo) and with 1 (NCCL), against
      make_on_device_stepper (1e-5, equal Newton): each rank's vector
      lengths, Krylov basis bytes and peak memory.
+ 23. the benchmark's 3-D cell, cylinder3d_r2 (the Schaefer-Turek 3D-1Z
+     channel, Q2/Q1 on 53,248 hexahedra, 1,408,668 dofs), built by its own
+     files in port_bench/ with a fixed seed and its knobs: the host first
+     step, then one step of make_on_device_stepper with the launch counts
+     zeroed just before it: ms, Newton and Krylov counts, host syncs,
+     launches per step and peak memory; converged, finite, no plan built
+     after the host first step, the stencil A-solve and one pressure
+     V-cycle as Sm^-1 taken, the Taylor-Hood layout launched.
 Phases 3, 5, 8, 11, 14, 16 and 18 run each CUDA run a second time inside
 la/operators.py's AtomicScatterGuard (an atomic floating-point
 scatter-add on a CUDA tensor raises there) and require the same bits
 and the same per-step Newton and Krylov counts (phase 18's saved runs
 repeat as a run cut at its first save plus the restart from it): the
 port sums every scatter on the card through plans in a fixed order.
-Phases 8-22 then hold every kernel shape they launched against its plain
+Phases 8-23 then hold every kernel shape they launched against its plain
 version as phase 2 does, at the path's own tables.  Phase 2 also checks
 the 3-D Q1/Q1 shapes (Taylor-Hood 32 x 32, p->u 24 x 8, u->p 8 x 24) in
-f32 and f64 on a 12^3 box.
+f32 and f64 on a 12^3 box, and the 3-D cell's Q2/Q1 shapes (Taylor-Hood
+89 x 89, node block 81 x 81, u->p 8 x 81, p->u 81 x 8, Mp 8 x 8) in f32
+and f64 at its 53,248 hexahedra, on the tables of the cell's case.
 Phases 4, 6 and 7 print ms per coupled step, Newton and Krylov counts per
 step, launches per coupled step and peak device memory, and fail if a
 gather plan is built after the first coupled step; phases 9 and 10 print
@@ -198,7 +208,7 @@ if a plan is built after the configuration's first step; phases 12 and
 count their launches per (layout, dtype, number of cells, block rows,
 block columns); the script fails if a path launched a shape that no phase
 checked.  Then a JSON line with one entry per such shape (launches summed
-over the paths of phases 4 and 6-22, and per step of each path; error and
+over the paths of phases 4 and 6-23, and per step of each path; error and
 times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
 """
@@ -298,6 +308,18 @@ CAVITY_REFINE, CAVITY_STEPS = 6, 1
 # range-sharded stepper on 4 ranks sharing the card
 SHARDED_A_STEPS, SHARDED_B_STEPS = 3, 2
 RANGE_STEPPER = (4, 1)
+# phase 23 and phase 2's 3-D cylinder: the benchmark's 3-D cell, built by
+# its own files (BENCHMARK.json, port_bench/configs, port_bench/mixes) with
+# a fixed seed: hexahedra, DoF, and the shapes of its Q2/Q1 blocks (nlu 27,
+# d 3, nlp 8) by layout
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CYLINDER3D = dict(workload="cylinder3d_r2", seed=2147483671, cells=53248,
+                  dofs=1408668)
+CYLINDER3D_LAYOUTS = {"element_matvec_taylor_hood": (89, 89),
+                      "element_matvec_nodeblock": (81, 81),
+                      "element_matvec_u_to_p_nodeblock": (8, 81),
+                      "element_matvec_p_to_u_nodeblock": (81, 8),
+                      "element_matvec": (8, 8)}
 
 
 def say(msg):
@@ -618,8 +640,43 @@ def phase2_kernels(torch):
                       only=only)
         _require("phase 2 (3-D)", only <= set(results),
                  f"3-D shapes not checked: {sorted(only - set(results))}")
+    del fl3, box
+    # the 3-D cell's Q2/Q1 shapes at its size, on its tables (the case
+    # built with the cell's knobs): every layout its path launches
+    fl3 = _bench_case(CYLINDER3D)[0].fluid
+    n_c = fl3.mesh.n_cells
+    _require("phase 2 (3-D Q2/Q1)", n_c == CYLINDER3D["cells"],
+             f"{n_c} hexahedra, not {CYLINDER3D['cells']}")
+    for dt in (torch.float64, torch.float32):
+        only = {(name, _dt_name(dt), n_c, nr, nc)
+                for name, (nr, nc) in CYLINDER3D_LAYOUTS.items()}
+        check_kernels(torch, "phase 2 (3-D Q2/Q1)",
+                      kernel_cases(torch, fl3, None, dt, gen), dt, results,
+                      only=only)
+        _require("phase 2 (3-D Q2/Q1)", only <= set(results),
+                 f"3-D Q2/Q1 shapes not checked: "
+                 f"{sorted(only - set(results))}")
+    del fl3
+    torch.cuda.empty_cache()
     cuda_ops.reset_launches()
     return results
+
+
+def _bench_case(cell):
+    """(case, mix) of the benchmark cell `cell["workload"]`, built on the
+    card as port_bench/run.py builds it, from BENCHMARK.json, the
+    configuration's Case (port_bench/configs) and the cell's mix, with
+    `cell["seed"]`."""
+    import importlib
+    bench = os.path.join(ROOT, "port_bench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import run as bench_run
+    import traffic
+    _, _, _, cfg, mix = bench_run.load_cell(cell["workload"])
+    module = importlib.import_module("configs." + cfg["name"])
+    return module.Case(cfg, mix, traffic.draw(mix, cell["seed"]),
+                        "cuda"), mix
 
 
 def _run_leaflet(device, h, refinements, n_steps, config="element", **kw):
@@ -2913,6 +2970,69 @@ def phase22_sharded_paths(torch, results, stepper, path_a_log=None):
     return paths
 
 
+def phase23_cylinder3d(torch, results):
+    """The benchmark's 3-D cell (Schaefer-Turek 3D-1Z, Q2/Q1 hexahedra)
+    through InsIM's host first step and one step of
+    make_on_device_stepper, with the launch counts zeroed just before the
+    stepper's step and read just after it."""
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.utils.timer import count_host_syncs
+    label = "phase 23"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    case, mix = _bench_case(CYLINDER3D)
+    fl = case.fluid
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    case.first_step()
+    torch.cuda.synchronize()
+    first_s, first_newton = time.perf_counter() - t0, fl.newton_iters
+    builds_first = cuda_ops.plan_builds
+    say(f"{label}: {CYLINDER3D['workload']} ({fl.mesh.n_cells} hexahedra, "
+        f"{fl.n_dofs} dofs, knobs {mix['knobs']}), set up in {setup_s:.2f} "
+        f"s; host first step Newton {first_newton} in {first_s:.2f} s")
+
+    cuda_ops.reset_launches()
+    k0, b0 = dict(fl.krylov_iters), dict(fl.precond_branches)
+    with count_host_syncs() as syncs:
+        t0 = time.perf_counter()
+        sol, rel, its = case.stepper(fl.present_solution, 1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = cuda_ops.launches.copy()
+    late_builds = cuda_ops.plan_builds - builds_first
+    branches = {k: n - b0.get(k, 0) for k, n in fl.precond_branches.items()
+                if n > b0.get(k, 0)}
+    solves = sum(branches.values())
+    per_step = _window_report(
+        label, "stepper (one step)", fl, 1, seconds, k0, solves,
+        f"Newton iterations {its}", syncs["syncs"], Counter(),
+        torch.cuda.max_memory_allocated())
+    fl.present_solution = sol
+    finite = bool(torch.isfinite(sol).all())
+    vmax = sol[:fl.n_u].abs().max().item()
+    matvec = sum(n for key, n in launches.items()
+                 if key[0] in CYLINDER3D_LAYOUTS)
+    # the step's own branches and Schur CG iterations: r4's path, one
+    # pressure V-cycle as Sm^-1 (mg_direct) and the stencil A-solve
+    ok = (rel < fl.params.fluid_tolerance and finite
+          and fl.n_dofs == CYLINDER3D["dofs"] and late_builds == 0
+          and set(branches) == {("stencil", "vcycle")}
+          and fl.krylov_iters["sm"] == k0["sm"] and 0.4 < vmax < 1.5
+          and _launched(launches, "element_matvec_taylor_hood") > 0)
+    say(f"{label}: rel res {rel:.3e} (< {fl.params.fluid_tolerance:.0e}), "
+        f"finite {finite}, max |u| {vmax:.4f} (inflow peak 0.45), the "
+        f"step's branches {branches}, element-matvec launches in the step "
+        f"{matvec}, plan builds {cuda_ops.plan_builds} ({late_builds} "
+        f"after the host first step) {'ok' if ok else 'FAILED'}")
+    # the launched shapes first: a failed step still shows them
+    _check_launched(torch, label, fl, launches, results,
+                    fl._pressure_mg.levels)
+    _require(label, ok, "the 3-D cylinder's stepper step failed")
+    return {CYLINDER3D["workload"]: (launches, per_step)}
+
+
 def _vs_ref(a, b):
     """max |a - b| relative to max(1, max |b|), on numpy arrays."""
     import numpy as np
@@ -2930,7 +3050,7 @@ def _run_phase(n, fn, *args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 23))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 24))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
     ap.add_argument("--scnsim-depth", default=",".join(map(str, (
@@ -2961,8 +3081,7 @@ def main():
     vocal_depth = tuple(int(n) for n in args.vocal_depth.split(","))
     if len(vocal_depth) != 2 or vocal_depth[0] < 0 or vocal_depth[1] < 1:
         ap.error("--vocal-depth takes warm >= 0, timed >= 1")
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
+    sys.path.insert(0, ROOT)
     import torch
     phase0_device(torch)
     # raises ImportError when the script runs outside the repository; the
@@ -3031,7 +3150,9 @@ def main():
         if 22 in want:
             runs.update(_run_phase(22, phase22_sharded_paths, torch,
                                    checked, RANGE_STEPPER, path_a_log))
-        os.chdir(root)
+        if 23 in want:
+            runs.update(_run_phase(23, phase23_cylinder3d, torch, checked))
+        os.chdir(ROOT)
     launched = sum((c for c, _ in runs.values()), Counter())
     # every shape a path launched was held against the plain version
     unchecked = sorted(k for k in launched if k not in checked)

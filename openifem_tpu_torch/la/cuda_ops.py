@@ -20,11 +20,12 @@ contiguity, allocates y with torch.empty, makes one ctypes call on
 PyTorch's current stream, raises if the kernel returned an error, and
 counts the launch in `launches` under (layout, dtype name, number of
 cells, block rows, block columns), so that a caller can tell which shapes
-a run launched.  A replayed CUDA graph (la/krylov.py BlockGraphs)
-launches without calling it: BlockGraphs takes a capture's counts back
-out and adds them on every replay, so `launches` holds what ran.
-la/operators.py calls it for CUDA tensors; there is no fallback to the
-plain version.  `emulate` is the kernel's index arithmetic in plain
+a run launched, and at a key's first launch notes in `launch_sizes` what
+a launch of it moves (a reader computes its bytes from them).  A
+replayed CUDA graph (la/krylov.py BlockGraphs) launches without calling
+it: BlockGraphs takes a capture's counts back out and adds them on every
+replay, so `launches` holds what ran.  la/operators.py calls it for CUDA
+tensors; there is no fallback to the plain version.  `emulate` is the kernel's index arithmetic in plain
 PyTorch, for the tests.
 """
 
@@ -58,6 +59,12 @@ MAX_COLUMNS = 256
 # launches of the kernel, per (layout, dtype name, number of cells, block
 # rows, block columns)
 launches = Counter()
+# what a launch of each key of `launches` moves, noted at the key's first
+# launch (set-up and graph captures included, and kept through
+# reset_launches): cells, nr, nc, the element size of A, the entries of
+# the index tables it reads (rows, and cols where it is another table) and
+# their element size, x's entries and element size, and n_out
+launch_sizes = {}
 # gather plans built (one per index table and row count)
 plan_builds = 0
 
@@ -247,7 +254,14 @@ def launch(layout: str, A, cell_stride: int, row_stride: int, rows, cols,
     if rc != 0:
         raise RuntimeError(f"element-matvec kernel launch failed "
                            f"({layout}): cudaError {rc}")
-    launches[(layout, dt_name, n_c, nr, nc)] += 1
+    key = (layout, dt_name, n_c, nr, nc)
+    launches[key] += 1
+    if key not in launch_sizes:
+        launch_sizes[key] = dict(
+            cells=n_c, nr=nr, nc=nc, a_elem_bytes=A.element_size(),
+            table_numel=rows.numel() + (0 if cols is rows else cols.numel()),
+            table_elem_bytes=rows.element_size(), x_numel=x.numel(),
+            x_elem_bytes=x.element_size(), n_out=n_out)
     return y
 
 

@@ -293,12 +293,16 @@ def extrude(m2: Mesh, n_slices: int, height: float) -> Mesh:
                          0 if l == n_slices - 2 else -1])
             fman.append([f2[0], f2[1], f2[2], f2[3], -1, -1])
             mat.append(m2.material_id[c])
+    # the 2-D transfinite charts carry over: a layer's cell keeps its
+    # quad's chart in (x, y) and is linear in z
     return Mesh(dim=3, vertices=verts,
                 cells=np.array(cells, dtype=np.int64),
                 material_id=np.array(mat, dtype=np.int32),
                 boundary_id=np.array(bids, dtype=np.int32),
                 face_manifold=np.array(fman, dtype=np.int32),
-                manifolds=dict(m2.manifolds))
+                manifolds=dict(m2.manifolds), tfi=m2.tfi,
+                tfi_coarse=np.tile(m2.tfi_coarse, n_slices - 1),
+                tfi_rect=np.tile(m2.tfi_rect, (n_slices - 1, 1)))
 
 
 def cylinder(radius: float, length: float) -> Mesh:
@@ -353,15 +357,18 @@ def flow_around_cylinder_2d(compute_in_2d: bool = True) -> Mesh:
                                       colorize=False)
     centers = bulk.cell_centers()
     remove = np.linalg.norm(centers - np.array([0.2, 0.2]), axis=1) < 0.15
-    # offset: 2 * (upper-right corner of the cell whose lower-left corner is
-    # at (left, 0))
-    dx = (2.2 - left) / nx
-    dy = 0.41 / 4
-    offset = np.array([2 * (left + dx), 2 * dy]) - np.array([left, 0.0])
+    # the removed block is the 2 x 2 cells around the grid point nearest
+    # (0.2, 0.2); the shell is centred on that point whatever `left` is
+    # (the JAX package's offset, 2 (left + dx, dy) - (left, 0) + (left, 0),
+    # holds only for left = 0 and puts the 3-D base's shell at x = -0.4)
+    xs = np.linspace(left, 2.2, nx + 1)
+    ys = np.linspace(0.0, 0.41, 5)
+    hole = np.array([xs[np.argmin(np.abs(xs - 0.2))],
+                     ys[np.argmin(np.abs(ys - 0.2))]])
     result1 = remove_cells(bulk, remove)
 
     shell = _hyper_shell_squashed(0.05, 0.41 / 4.0)
-    shell.vertices = shell.vertices + offset + np.array([left, 0.0])
+    shell.vertices = shell.vertices + hole
     shell.material_id[:] = 2
 
     def min_line_length(m):
@@ -413,7 +420,10 @@ def flow_around_cylinder_2d(compute_in_2d: bool = True) -> Mesh:
 def flow_around_cylinder(dim: int = 2) -> Mesh:
     """Boundary ids: 2D: 0 inflow(x=0), 1 outflow(x=2.2), 2 bottom, 3 top,
     4 cylinder (reference: source/utilities.cpp:490-530).
-    3D: 0/1 x, 2/3 y, 4/5 z, 6 cylinder."""
+    3D: 0 inflow (x = -0.3), 1 outflow (x = 2.2), 2/3 y = 0/0.41, 4/5
+    z = 0/0.41, 6 cylinder (axis along z through (0.2, 0.2), radius 0.05,
+    on a cylindrical manifold; the shell cells refine through the 2-D
+    transfinite charts in (x, y) and linearly in z)."""
     with span("mesh"):
         if dim == 2:
             m = flow_around_cylinder_2d(True)
@@ -421,7 +431,8 @@ def flow_around_cylinder(dim: int = 2) -> Mesh:
             return m
         m2 = flow_around_cylinder_2d(False)
         m = extrude(m2, 9, 0.41)
-        m.manifolds = dict(m2.manifolds)
+        m.manifolds = {0: CylindricalManifold(axis=2,
+                                              center=[0.2, 0.2, 0.0])}
         for c in range(m.n_cells):
             for f in range(6):
                 if m.boundary_id[c, f] < 0:

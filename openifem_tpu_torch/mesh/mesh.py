@@ -495,7 +495,12 @@ class Mesh:
         def new_pt(key, points, mid):
             if key in new_vertex:
                 return new_vertex[key]
-            p = self._manifold(mid).new_point(np.asarray(points))
+            return place(key, self._manifold(mid).new_point(
+                np.asarray(points)))
+
+        def place(key, p):
+            if key in new_vertex:
+                return new_vertex[key]
             pk = tuple(np.round(p, 12))
             if pk in pos_lookup:
                 new_vertex[key] = pos_lookup[pk]
@@ -519,9 +524,34 @@ class Mesh:
                 mid = self.cell_manifold[c]
             return new_pt(key, [verts[x] for x in vs], mid)
 
+        def chart_lattice(c, v, L):
+            """The new points of an extruded cell with a transfinite chart
+            (generators.extrude): the coarse quad's chart at the halves of
+            the cell's (xi, eta) rectangle, linear in z between the cell's
+            bottom and top.  Each point is keyed by the corners of the
+            edge, face or cell it lies in."""
+            cid = int(self.tfi_coarse[c])
+            xi0, eta0, xi1, eta1 = self.tfi_rect[c]
+            xis = (xi0, 0.5 * (xi0 + xi1), xi1)
+            etas = (eta0, 0.5 * (eta0 + eta1), eta1)
+            z0, z1 = verts[v[0]][2], verts[v[4]][2]
+            zs = (z0, 0.5 * (z0 + z1), z1)
+            for i, j, k in np.ndindex(3, 3, 3):
+                if i != 1 and j != 1 and k != 1:
+                    continue
+                key = frozenset(
+                    v[(a // 2) + 2 * (b // 2) + 4 * (cc // 2)]
+                    for a in ((0, 2) if i == 1 else (i,))
+                    for b in ((0, 2) if j == 1 else (j,))
+                    for cc in ((0, 2) if k == 1 else (k,)))
+                xy = self.tfi.eval(cid, xis[i], etas[j])
+                L[i, j, k] = place(key, np.array([xy[0], xy[1], zs[k]]))
+            return xis, etas
+
         new_cells, new_mat, new_bnd, new_fman, new_cman, new_lvl = \
             [], [], [], [], [], []
         new_fam, new_chi = [], []
+        new_tfic, new_tfir = [], []
         fam_base = int(max(0, self.family.max() + 1))
         for c in range(self.n_cells):
             v = [int(x) for x in self.cells[c]]
@@ -534,16 +564,10 @@ class Mesh:
                 new_lvl.append(self.level[c])
                 new_fam.append(self.family[c])
                 new_chi.append(self.child_index[c])
+                new_tfic.append(self.tfi_coarse[c])
+                new_tfir.append(list(self.tfi_rect[c]))
                 continue
-            # 12 edge midpoints
-            em = {e: edge_mid(c, v[e[0]], v[e[1]]) for e in _EDGES_3D}
-            # 6 face centers
-            fc = [face_mid(c, f) for f in range(6)]
-            # cell center
             cman = self.cell_manifold[c]
-            ck = frozenset(v)
-            ci = new_pt(ck, [verts[x] for x in v], cman)
-
             # Build the 3x3x3 lattice of points indices for this cell:
             # lattice[i][j][k] with i,j,k in {0,1,2} (x,y,z halves)
             L = np.empty((3, 3, 3), dtype=np.int64)
@@ -553,18 +577,35 @@ class Mesh:
                 for j in (0, 2):
                     for k in (0, 2):
                         L[i, j, k] = bits(i, j, k)
-            # edge midpoints
-            L[1, 0, 0] = em[(0, 1)]; L[1, 2, 0] = em[(2, 3)]
-            L[1, 0, 2] = em[(4, 5)]; L[1, 2, 2] = em[(6, 7)]
-            L[0, 1, 0] = em[(0, 2)]; L[2, 1, 0] = em[(1, 3)]
-            L[0, 1, 2] = em[(4, 6)]; L[2, 1, 2] = em[(5, 7)]
-            L[0, 0, 1] = em[(0, 4)]; L[2, 0, 1] = em[(1, 5)]
-            L[0, 2, 1] = em[(2, 6)]; L[2, 2, 1] = em[(3, 7)]
-            # face centers: faces [-x,+x,-y,+y,-z,+z]
-            L[0, 1, 1] = fc[0]; L[2, 1, 1] = fc[1]
-            L[1, 0, 1] = fc[2]; L[1, 2, 1] = fc[3]
-            L[1, 1, 0] = fc[4]; L[1, 1, 2] = fc[5]
-            L[1, 1, 1] = ci
+            if self.tfi_coarse[c] >= 0 and self.tfi is not None:
+                xis, etas = chart_lattice(c, v, L)
+                kid_cid = self.tfi_coarse[c]
+                kid_rects = [[xis[kx], etas[ky], xis[kx + 1], etas[ky + 1]]
+                             for kz in range(2) for ky in range(2)
+                             for kx in range(2)]
+            else:
+                # 12 edge midpoints
+                em = {e: edge_mid(c, v[e[0]], v[e[1]]) for e in _EDGES_3D}
+                # 6 face centers
+                fc = [face_mid(c, f) for f in range(6)]
+                # cell center
+                ck = frozenset(v)
+                ci = new_pt(ck, [verts[x] for x in v], cman)
+                # edge midpoints
+                L[1, 0, 0] = em[(0, 1)]; L[1, 2, 0] = em[(2, 3)]
+                L[1, 0, 2] = em[(4, 5)]; L[1, 2, 2] = em[(6, 7)]
+                L[0, 1, 0] = em[(0, 2)]; L[2, 1, 0] = em[(1, 3)]
+                L[0, 1, 2] = em[(4, 6)]; L[2, 1, 2] = em[(5, 7)]
+                L[0, 0, 1] = em[(0, 4)]; L[2, 0, 1] = em[(1, 5)]
+                L[0, 2, 1] = em[(2, 6)]; L[2, 2, 1] = em[(3, 7)]
+                # face centers: faces [-x,+x,-y,+y,-z,+z]
+                L[0, 1, 1] = fc[0]; L[2, 1, 1] = fc[1]
+                L[1, 0, 1] = fc[2]; L[1, 2, 1] = fc[3]
+                L[1, 1, 0] = fc[4]; L[1, 1, 2] = fc[5]
+                L[1, 1, 1] = ci
+                kid_cid, kid_rects = -1, [[0.0, 0.0, 1.0, 1.0]] * 8
+            new_tfic += [kid_cid] * 8
+            new_tfir += kid_rects
 
             b = self.boundary_id[c]
             fm = self.face_manifold[c]
@@ -604,5 +645,8 @@ class Mesh:
                     cell_manifold=np.array(new_cman, dtype=np.int32),
                     level=np.array(new_lvl, dtype=np.int32),
                     manifolds=self.manifolds,
+                    tfi=self.tfi,
+                    tfi_coarse=np.array(new_tfic, dtype=np.int32),
+                    tfi_rect=np.array(new_tfir, dtype=np.float64),
                     family=np.array(new_fam, dtype=np.int64),
                     child_index=np.array(new_chi, dtype=np.int8))

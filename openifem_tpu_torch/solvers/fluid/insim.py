@@ -218,9 +218,19 @@ class InsIM(FluidSolverBase):
                 self._u_stencil = StencilOperator(pgrid, self.u_space, d=d,
                                                   device=self.device)
 
+        def ein(spec, *ops):
+            """np.einsum of host arrays.  Hexahedra (27 velocity nodes and
+            27 points a cell) take torch's batched contraction on the
+            solver's device, where numpy's plain loop takes minutes at a
+            million dofs; the sums differ in the last bits, so quads keep
+            the loop their tables were always built with."""
+            if d == 2:
+                return np.einsum(spec, *ops)
+            return torch.einsum(spec, *[t(o) for o in ops]).cpu().numpy()
+
         # mass matrices for the preconditioner (no rho; reference
         # source/insim.cpp:255-257)
-        Mu_s = np.einsum("qi,qj,cq->cij", cvu.N, cvu.N, cvu.JxW)
+        Mu_s = ein("qi,qj,cq->cij", cvu.N, cvu.N, cvu.JxW)
         diag_mu = np.zeros(self.n_u)
         dloc = np.einsum("cii->ci", Mu_s)
         for a in range(d):
@@ -254,17 +264,16 @@ class InsIM(FluidSolverBase):
             params.fluid_rho
         dt = self.time.get_delta_t()
         I_np = np.eye(d)
-        NN = np.einsum("ql,qm,cq->clm", cvu.N, cvu.N, cvu.JxW)
-        gg = np.einsum("cqlx,cqmx,cq->clm", cvu.grad, cvu.grad, cvu.JxW)
-        Auu_c = np.einsum("clm,ab->clamb", nu_visc * gg + (rho / dt) * NN,
-                          I_np)
-        Auu_c = Auu_c + (gamma * rho) * np.einsum(
+        NN = Mu_s                                   # the velocity mass
+        gg = ein("cqlx,cqmx,cq->clm", cvu.grad, cvu.grad, cvu.JxW)
+        Auu_c = ein("clm,ab->clamb", nu_visc * gg + (rho / dt) * NN, I_np)
+        Auu_c = Auu_c + (gamma * rho) * ein(
             "cqla,cqmb,cq->clamb", cvu.grad, cvu.grad, cvu.JxW)
         Auu_c = Auu_c.reshape(n_c, self.nu_loc, self.nu_loc)
-        Aup = -np.einsum("cqla,qn,cq->clan", cvu.grad, cvp.N,
-                         cvu.JxW).reshape(n_c, self.nu_loc, nlp)
-        Apu = -np.einsum("qn,cqmb,cq->cnmb", cvp.N, cvu.grad,
-                         cvu.JxW).reshape(n_c, nlp, self.nu_loc)
+        Aup = -ein("cqla,qn,cq->clan", cvu.grad, cvp.N,
+                   cvu.JxW).reshape(n_c, self.nu_loc, nlp)
+        Apu = -ein("qn,cqmb,cq->cnmb", cvp.N, cvu.grad,
+                   cvu.JxW).reshape(n_c, nlp, self.nu_loc)
         nl = self.nu_loc + nlp
         A_const = np.zeros((n_c, nl, nl))
         A_const[:, :self.nu_loc, :self.nu_loc] = Auu_c

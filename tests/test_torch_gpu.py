@@ -746,8 +746,12 @@ def test_insimex_cuda_matches_cpu(cuda, mixed):
 # against the JAX package).
 
 # Q1/Q1 in 2-D (nlu 4, d 2, nlp 4) and in 3-D (nlu 8, d 3, nlp 8): no
-# shape of the Taylor-Hood paths has so few columns per block
-SUPG_SHAPES = {"2d": (4, 2, 4, 5888, 6128), "3d": (8, 3, 8, 1728, 2197)}
+# shape of the Taylor-Hood paths has so few columns per block; and Q2/Q1
+# on hexahedra (nlu 27, d 3, nlp 8), the 3-D channel's 89 x 89 element
+# and its 81 x 81, 8 x 81, 81 x 8 and 8 x 8 blocks: 89 and 81 columns take
+# three steps of 32 lanes
+SUPG_SHAPES = {"2d": (4, 2, 4, 5888, 6128), "3d": (8, 3, 8, 1728, 2197),
+               "3d_q2q1": (27, 3, 8, 6656, 55000)}
 
 
 def _supg_cases(dev, dtype, shape):
@@ -780,17 +784,23 @@ def _supg_cases(dev, dtype, shape):
                       (A[:, nu:, nu:], pd, n_n, xp), (nlp, nlp)),
         "scalar_vv": (ops.element_matvec, ops.element_matvec_plain,
                       (Av, cd[:, :nu].contiguous(), n_n * d, xu), (nu, nu)),
+        "nodeblock": (ops.element_matvec_nodeblock,
+                      ops.element_matvec_nodeblock_plain,
+                      (Av.reshape(n_c, nlu, d, nlu, d), un, n_n, xu),
+                      (nu, nu)),
     }
 
 
 @DTYPES
 @pytest.mark.parametrize("shape", SUPG_SHAPES)
 @pytest.mark.parametrize("which", ["taylor_hood", "p_to_u", "u_to_p",
-                                   "scalar_pp", "scalar_vv"])
+                                   "scalar_pp", "scalar_vv", "nodeblock"])
 def test_kernel_at_supg_shapes(cuda, which, shape, dtype):
-    """12 x 12, 8 x 4, 4 x 8, 4 x 4 and 8 x 8 blocks (2-D) and 32 x 32,
-    24 x 8, 8 x 24, 8 x 8 and 24 x 24 (3-D): the group-size rule at 4, 8,
-    12 and 24 columns and the stride checks on views of one table."""
+    """12 x 12, 8 x 4, 4 x 8, 4 x 4 and 8 x 8 blocks (2-D), 32 x 32,
+    24 x 8, 8 x 24, 8 x 8 and 24 x 24 (3-D) and 89 x 89, 81 x 8, 8 x 81,
+    8 x 8 and 81 x 81 (Q2/Q1 hexahedra), the velocity blocks also as node
+    blocks: the group-size rule at 4, 8, 12, 24, 81 and 89 columns and the
+    stride checks on views of one table."""
     kern, plain, args, block = _supg_cases(cuda, dtype, shape)[which]
     before = cuda_ops.launches.copy()
     y = kern(*args)
