@@ -185,7 +185,16 @@ and 1 always run):
      zeroed just before it: ms, Newton and Krylov counts, host syncs,
      launches per step and peak memory; converged, finite, no plan built
      after the host first step, the stencil A-solve and one pressure
-     V-cycle as Sm^-1 taken, the Taylor-Hood layout launched.
+     V-cycle as Sm^-1 taken, the Taylor-Hood layout launched;
+ 24. the stencil kernel (csrc/stencil_apply.cu) at the cells' brick
+     groups, 832 bricks of 13^3 slots with 3 x 3 blocks (cylinder3d_r2)
+     and 92 of 37^2 with 2 x 2 (cylinder_r4), k = 2, in f32 and f64:
+     against la/stencil.py's plain_group_apply on random coefficients
+     where a built stencil holds entries (f64 <= 1e-12, f32 <= 1e-5),
+     border slots exactly 0, repeats bitwise
+     equal; device us of the kernel and of the plain apply (CUDA events)
+     and the bound (the structurally non-zero coefficients, x and y once
+     at the HBM rate).
 Phases 3, 5, 8, 11, 14, 16 and 18 run each CUDA run a second time inside
 la/operators.py's AtomicScatterGuard (an atomic floating-point
 scatter-add on a CUDA tensor raises there) and require the same bits
@@ -206,8 +215,11 @@ synchronisations per step, launches per step and peak memory, and fail
 if a plan is built after the configuration's first step; phases 12 and
 13 print the same with their own Krylov counts.  The kernels
 count their launches per (layout, dtype, number of cells, block rows,
-block columns); the script fails if a path launched a shape that no phase
-checked.  Then a JSON line with one entry per such shape (launches summed
+block columns), the stencil kernel per ("stencil_apply", dtype, bricks,
+bordered grid, k, d_out, d_in); the script fails if a path launched a
+shape that no phase checked (a stencil shape that phase 24 did not take
+is checked as phase 24 does before the end: the kernel has no tables, so
+its shape is all it depends on).  Then a JSON line with one entry per such shape (launches summed
 over the paths of phases 4 and 6-23, and per step of each path; error and
 times measured at that shape) and the last line {"ok": true, ...}.
 Exits non-zero, and prints no result, when no CUDA device is present.
@@ -228,6 +240,13 @@ from collections import Counter
 
 SOURCE = "openifem_tpu_torch/csrc/element_matvec.cu"
 REPLACES = "openifem_tpu/la/pallas_ops.py:64"
+STENCIL_SOURCE = "openifem_tpu_torch/csrc/stencil_apply.cu"
+STENCIL_REPLACES = ("none: openifem_tpu/la/stencil.py's "
+                    "StencilOperator.matvec is XLA ops")
+# phase 24: the stencil kernel at the cells' brick groups: (what, bricks,
+# bordered grid, k, components)
+STENCIL_SHAPES = (("cylinder3d_r2", 832, (13, 13, 13), 2, 3),
+                  ("cylinder_r4", 92, (37, 37), 2, 2))
 # the layouts that the element-matvec branch launches; element_matvec_rect
 # (the flat B / B^T layout) is InsIMEX's, phase 10
 PATH_LAYOUTS = ("element_matvec_taylor_hood", "element_matvec_nodeblock",
@@ -607,6 +626,99 @@ def check_kernels(torch, label, cases, dt, results, cold=(), only=None):
                 host_us=host_us, bound_us=bound_us, bound_bytes=nbytes,
                 library_us=library_us, plain_us=plain_us, plan_k=K,
                 bitwise_repeat=bitwise, cold_l2_us=cold_us)
+
+
+def _stencil_bound(key, sizes):
+    """(bound us, bytes, "bytes" or "operations") of one stencil launch,
+    from port_bench/metrics/stencil_roofline.py's count (the structurally
+    non-zero coefficients, x and y at the nodes, each moved once), so that
+    this script's bound and the benchmark's stencil_roofline agree."""
+    import importlib
+    bench = os.path.join(ROOT, "port_bench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    roofline = importlib.import_module("metrics.stencil_roofline")
+    seconds, nbytes = roofline.least_seconds(key, sizes)
+    by = ("bytes" if seconds == nbytes / roofline.peaks.HBM_BYTES_PER_S
+          else "operations")
+    return 1e6 * seconds, nbytes, by
+
+
+def check_stencil(torch, label, key, results, what="launched"):
+    """The stencil kernel at one ("stencil_apply", dtype, bricks, bordered
+    grid, k, d_out, d_in) shape against la/stencil.py's plain_group_apply
+    on random coefficients where a built stencil can hold entries
+    (coupling_mask) and zeros elsewhere (relative error to
+    TOL[dtype]), and against itself (repeats bitwise equal), with device
+    times of both, host time and the bound; raises on a miss.  Skips a
+    shape that `results` holds already."""
+    import numpy as np
+    from openifem_tpu_torch.la import cuda_ops
+    from openifem_tpu_torch.la.stencil import (_Group, coupling_mask,
+                                               plain_group_apply)
+    if key in results:
+        return
+    _, name_dt, n_b, gp, k, d_out, d_in = key
+    dt = getattr(torch, name_dt)
+    m, _ = cuda_ops.stencil_geometry(gp, k)
+    g = _Group(np.zeros((n_b,) + m, np.int64), k, 0)
+    dim, S = len(gp), 2 * k + 1
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    inner = torch.zeros(gp, dtype=torch.bool, device="cuda")
+    inner[tuple(slice(k, n - k) for n in gp)] = True
+    W = torch.randn((S ** dim, d_out, d_in, n_b, g.M), generator=gen,
+                    dtype=dt, device="cuda")
+    W.mul_(coupling_mask(gp, k, "cuda")[:, None, None, None, :])
+    X = torch.randn((d_in, n_b * g.M), generator=gen, dtype=dt,
+                    device="cuda")
+    Y = torch.empty((d_out, n_b * g.M), dtype=dt, device="cuda")
+
+    def kern():
+        return cuda_ops.stencil_apply(W, X, Y, 0, gp, k)
+
+    def plain():
+        return plain_group_apply(W, X, g, S, dim)
+
+    y, yp = kern().clone(), plain()
+    torch.cuda.synchronize()
+    abs_err = (y - yp).abs().max().item()
+    rel = abs_err / yp.abs().max().item()
+    border_zero = bool((y.reshape(d_out, n_b, -1)[:, :, ~inner.reshape(-1)]
+                        == 0).all())
+    bitwise = all(torch.equal(kern(), y) for _ in range(3))
+    host_us = _host_us(torch, kern, 20)
+    device_us = _device_us(torch, kern, host_us, reps=20)
+    plain_us = _device_us(torch, plain, _host_us(torch, plain, 5), reps=5)
+    sizes = cuda_ops.stencil_sizes[key]
+    bound_us, nbytes, bound_by = _stencil_bound(key, sizes)
+    ok = rel <= TOL[name_dt] and bitwise and border_zero
+    say(f"{label}: stencil_apply ({what}, {n_b} bricks of "
+        f"{'x'.join(map(str, gp))} slots, k {k}, {d_out} x {d_in}) "
+        f"{name_dt}: rel err {rel:.3e} (tol {TOL[name_dt]:.0e}) abs err "
+        f"{abs_err:.3e}, border 0 {border_zero}, repeats bitwise "
+        f"{bitwise}; device {device_us:.3f} us (plain {plain_us:.3f}), "
+        f"bound {bound_us:.3f} us ({nbytes} B, {bound_by}; "
+        f"{100 * bound_us / device_us:.1f} %), host {host_us:.2f} us/call "
+        f"{'ok' if ok else 'FAILED'}")
+    del W, X, Y, y, yp
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"stencil_apply {key} disagrees with its plain "
+                             f"version ({rel:.3e}), writes a border slot "
+                             f"or differs from itself (bitwise {bitwise})")
+    results[key] = dict(
+        rel=rel, what=what, max_abs_err=abs_err, ms=device_us / 1e3,
+        plain_ms=plain_us / 1e3, bound_ms=bound_us / 1e3, bound_by=bound_by,
+        device_us=device_us, host_us=host_us, bound_us=bound_us,
+        bound_bytes=nbytes, plain_us=plain_us, bitwise_repeat=bitwise)
+
+
+def phase24_stencil(torch, results):
+    for what, n_b, gp, k, d in STENCIL_SHAPES:
+        for name_dt in ("float32", "float64"):
+            check_stencil(torch, "phase 24", ("stencil_apply", name_dt, n_b,
+                                              gp, k, d, d), results, what)
+    return results
 
 
 def phase2_kernels(torch):
@@ -1468,7 +1580,8 @@ def phase12_scnsim(torch, results, depth):
         f"builds {cuda_ops.plan_builds} ({late_builds} after the first "
         f"step) {'ok' if ok else 'FAILED'}")
     _require(label, ok, "SCnsIM coupled-stencil run failed")
-    _require(label, {k[0] for k in launches} == {"element_matvec"},
+    _require(label, {k[0] for k in launches} == {"element_matvec",
+                                                  "stencil_apply"},
              f"layouts on the stencil branch: {sorted(launches)}")
     _check_launched(torch, label, fl, launches, results,
                     _galerkin_levels(torch, fl._pressure_mg))
@@ -2613,15 +2726,17 @@ def phase19_adaptive(torch, results, n_steps):
 # -- the sharded paths (parallel/shard.py, entry.py) ------------------------
 
 def _rank_tables_check(torch, label, tables, launched, results, seed=201):
-    """Hold every shape in `launched` (and its float32 twin) against its
-    plain version at the rank tables it was launched with (entry.py's
-    snapshots: "fluid" tables in a solver's form, "solid" scalar
-    tables)."""
+    """Hold every element shape in `launched` (and its float32 twin)
+    against its plain version at the rank tables it was launched with
+    (entry.py's snapshots: "fluid" tables in a solver's form, "solid"
+    scalar tables).  Stencil shapes need no tables: main() checks them
+    before the end."""
     from types import SimpleNamespace
 
     import numpy as np
-    only = set(launched) | {(lay, "float32", n, r, c)
-                            for lay, _, n, r, c in launched}
+    element = [key for key in launched if key[0] != "stencil_apply"]
+    only = set(element) | {(lay, "float32", n, r, c)
+                           for lay, _, n, r, c in element}
     for dt in (torch.float64, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         for t in tables:
@@ -3033,6 +3148,17 @@ def phase23_cylinder3d(torch, results):
     return {CYLINDER3D["workload"]: (launches, per_step)}
 
 
+def _kernel_names(key):
+    """(name, source, what it replaces) of a launched shape."""
+    if key[0] == "stencil_apply":
+        _, dt, n_b, gp, k, d_out, d_in = key
+        return (f"stencil_apply[{dt}, {n_b} bricks of "
+                f"{'x'.join(map(str, gp))} slots, k {k}, {d_out}x{d_in}]",
+                STENCIL_SOURCE, STENCIL_REPLACES)
+    name, dt, n_c, nr, nc = key
+    return f"{name}[{dt}, {n_c} cells, {nr}x{nc}]", SOURCE, REPLACES
+
+
 def _vs_ref(a, b):
     """max |a - b| relative to max(1, max |b|), on numpy arrays."""
     import numpy as np
@@ -3050,7 +3176,7 @@ def _run_phase(n, fn, *args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(2, 24))),
+    ap.add_argument("--phases", default=",".join(map(str, range(2, 25))),
                     help="comma-separated phases to run besides 0 and 1 "
                          "(default: all)")
     ap.add_argument("--scnsim-depth", default=",".join(map(str, (
@@ -3152,8 +3278,13 @@ def main():
                                    checked, RANGE_STEPPER, path_a_log))
         if 23 in want:
             runs.update(_run_phase(23, phase23_cylinder3d, torch, checked))
+        if 24 in want:
+            _run_phase(24, phase24_stencil, torch, checked)
         os.chdir(ROOT)
     launched = sum((c for c, _ in runs.values()), Counter())
+    torch.cuda.empty_cache()
+    for key in sorted(k for k in launched if k[0] == "stencil_apply"):
+        check_stencil(torch, "kernels", key, checked)
     # every shape a path launched was held against the plain version
     unchecked = sorted(k for k in launched if k not in checked)
     _require("kernels", not unchecked,
@@ -3162,9 +3293,8 @@ def main():
     # one entry per (layout, dtype, number of cells, block rows, block
     # columns) that the paths launched, with the error and times measured
     # at that shape
-    kernels = [dict(name=f"{name}[{dt}, {n_c} cells, {nr}x{nc}]",
-                    route="cuda", source=SOURCE, replaces=REPLACES,
-                    launches=n,
+    kernels = [dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=n,
                     # measured on each path that launched the shape
                     launches_per_step={
                         path: per_step[key]
@@ -3172,7 +3302,7 @@ def main():
                         if key in per_step},
                     **{k: v for k, v in checked[key].items() if k != "rel"})
                for key, n in sorted(launched.items())
-               for name, dt, n_c, nr, nc in [key]]
+               for name, source, replaces in [_kernel_names(key)]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

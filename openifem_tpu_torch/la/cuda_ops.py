@@ -1,10 +1,12 @@
-"""Build, bind and launch the hand-written CUDA element-matvec kernel.
+"""Build, bind and launch the hand-written CUDA kernels: the element
+matvec and the stencil apply.
 
-Counterpart of openifem_tpu/la/pallas_ops.py.  The kernel source is
-csrc/element_matvec.cu (plain C interface, no PyTorch headers).  It is
-compiled with nvcc for sm_90a at first use into openifem_tpu_torch/_build/
-and loaded with ctypes; the library name carries a hash of the source, so
-an edited kernel is rebuilt.  Nothing CUDA-specific happens at import.
+Counterpart of openifem_tpu/la/pallas_ops.py.  The kernel sources are
+csrc/element_matvec.cu and csrc/stencil_apply.cu (plain C interfaces, no
+PyTorch headers).  They are compiled with nvcc for sm_90a at first use
+into one library under openifem_tpu_torch/_build/ and loaded with ctypes;
+the library name carries a hash of both sources, so an edited kernel is
+rebuilt.  Nothing CUDA-specific happens at import.
 
 The kernel is owner-computes: it reads the gather plan of the row table
 (la/operators.py::make_gather_plan) and writes each output once, so it
@@ -27,6 +29,15 @@ it: BlockGraphs takes a capture's counts back out and adds them on every
 replay, so `launches` holds what ran.  la/operators.py calls it for CUDA
 tensors; there is no fallback to the plain version.  `emulate` is the kernel's index arithmetic in plain
 PyTorch, for the tests.
+
+`stencil_apply` launches the stencil kernel on one brick group of
+la/stencil.py's StencilOperator (its `matvec` calls it for CUDA tensors;
+la/stencil.py's `emulate_stencil_apply` is its plain twin with the
+kernel's tiling).  It checks its arguments per call, counts the launch in
+`launches` under ("stencil_apply", dtype name, bricks, bordered grid, k,
+d_out, d_in), and at a key's first launch notes in `stencil_sizes` (never
+in `launch_sizes`, whose readers bound element-matvec launches) what one
+launch moves.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from ..utils.timer import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "element_matvec.cu")
+STENCIL_SOURCE = os.path.join(_PKG, "csrc", "stencil_apply.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -65,11 +77,20 @@ launches = Counter()
 # the index tables it reads (rows, and cols where it is another table) and
 # their element size, x's entries and element size, and n_out
 launch_sizes = {}
+# what one stencil launch of each ("stencil_apply", ...) key of `launches`
+# moves, noted at the key's first launch: the group's bricks n_b, cells m
+# and nodes G per axis, k, d_out, d_in and the element sizes of W and x
+stencil_sizes = {}
 # gather plans built (one per index table and row count)
 plan_builds = 0
 
 _DTYPES = {torch.float64: ("element_matvec_f64", "float64"),
            torch.float32: ("element_matvec_f32", "float32")}
+_STENCIL_DTYPES = {torch.float64: ("stencil_apply_f64", "float64"),
+                   torch.float32: ("stencil_apply_f32", "float32")}
+# component counts and degrees the stencil kernel takes
+STENCIL_MAX_COMPONENTS = 4
+STENCIL_DEGREES = (1, 2, 3)
 _LIB = None
 _LOCK = threading.Lock()
 build_seconds = None
@@ -87,15 +108,17 @@ def _nvcc():
             return p
     p = shutil.which("nvcc")
     if p is None:
-        raise RuntimeError("nvcc not found: the CUDA element-matvec kernel "
-                           "cannot be built on this machine")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built on this machine")
     return p
 
 
 def library_path():
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"element_matvec_{digest}.so")
+    digest = hashlib.sha1()
+    for src in (SOURCE, STENCIL_SOURCE):
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"kernels_{digest.hexdigest()[:12]}.so")
 
 
 def build(verbose: bool = False):
@@ -110,12 +133,12 @@ def build(verbose: bool = False):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, SOURCE]
+        + ["-o", tmp, SOURCE, STENCIL_SOURCE]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed to build the element-matvec "
-                           f"kernel:\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError("nvcc failed to build the kernels:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     if verbose:
@@ -137,6 +160,12 @@ def _lib():
                 for name, _ in _DTYPES.values():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+                for name, _ in _STENCIL_DTYPES.values():
+                    fn = getattr(lib, name)
+                    fn.argtypes = [p, ll, ll, ll, p, ll, p, ll] + [i] * 8 \
+                        + [p]
                     fn.restype = ctypes.c_int
                 _LIB = lib
     return _LIB
@@ -289,3 +318,102 @@ def emulate(layout: str, A, cell_stride: int, row_stride: int, rows, cols,
     col = cols.reshape(-1).long()[c[..., None] * (nc // dc) + k // dc]
     prod = A_rows * x[col * dc + k % dc]                 # (n_out, K, nc)
     return torch.where(valid[..., None], prod, 0).sum(dim=(1, 2))
+
+
+def stencil_geometry(gp, k):
+    """(cells m, nodes G) per axis of a brick group whose bordered grid is
+    `gp` (G = k m + 1, gp = G + 2 k); raises unless gp is such a grid."""
+    G = tuple(int(g) - 2 * k for g in gp)
+    m = tuple((n - 1) // k for n in G)
+    if any(c < 1 or k * c + 1 != n for c, n in zip(m, G)):
+        raise ValueError(f"{tuple(gp)} is not the bordered grid of a "
+                         f"degree-{k} brick")
+    return m, G
+
+
+def check_stencil_args(W, x, y, base, gp, k):
+    """Raise unless stencil_apply takes these arguments (any device);
+    returns (n_b, M, d_out, d_in)."""
+    dim = len(gp)
+    if dim not in (2, 3):
+        raise ValueError(f"the stencil kernel takes 2-D and 3-D bricks, "
+                         f"not {dim}-D")
+    if k not in STENCIL_DEGREES:
+        raise ValueError(f"the stencil kernel takes k in {STENCIL_DEGREES}"
+                         f", not {k}")
+    stencil_geometry(gp, k)
+    M = 1
+    for g in gp:
+        M *= int(g)
+    if W.dim() != 5 or W.shape[0] != (2 * k + 1) ** dim or W.shape[4] != M:
+        raise ValueError(f"W has shape {tuple(W.shape)}, expected "
+                         f"({(2 * k + 1) ** dim}, d_out, d_in, n_b, {M})")
+    d_out, d_in, n_b = W.shape[1], W.shape[2], W.shape[3]
+    for name, n in (("d_out", d_out), ("d_in", d_in)):
+        if not 1 <= n <= STENCIL_MAX_COMPONENTS:
+            raise ValueError(f"{name} {n} is outside [1, "
+                             f"{STENCIL_MAX_COMPONENTS}]")
+    if W.stride(4) != 1 or (n_b > 1 and W.stride(3) != M):
+        raise ValueError("each (n_b, M) plane of W must be contiguous")
+    if x.dtype not in _STENCIL_DTYPES:
+        raise TypeError(f"x must be float32 or float64, got {x.dtype}")
+    for name, t in (("W", W), ("y", y)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype} but x is {x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t, d in (("x", x, d_in), ("y", y, d_out)):
+        if t.dim() != 2 or t.shape[0] != d or t.stride(1) != 1:
+            raise ValueError(f"{name} must be ({d}, slots) with contiguous "
+                             f"rows, got {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+        if base < 0 or base + n_b * M > t.shape[1]:
+            raise ValueError(f"{name} has {t.shape[1]} slots; the group "
+                             f"takes [{base}, {base + n_b * M})")
+    extent = sum((n - 1) * st for n, st in zip(W.shape, W.stride())) + 1
+    if W.numel() and W.storage_offset() + extent > \
+            W.untyped_storage().nbytes() // W.element_size():
+        raise ValueError("W's strides reach past its storage")
+    return n_b, M, d_out, d_in
+
+
+def stencil_apply(W, x, y, base: int, gp, k: int):
+    """One brick group of a structured-patch stencil apply: with
+    M = prod(gp) slots per brick and s over the (2k+1)^dim offsets,
+
+        y[a, base + b*M + m] = sum_{s, c} W[s, a, c, b, m]
+                               * x[c, base + b*M + m + off(s) - F]
+
+    at a brick's interior slots (k or more from each face of its
+    bordered grid `gp`) and exactly 0 at its border slots.  W must be zero
+    on the border rows and wherever it couples two nodes of no common
+    cell, as StencilOperator.build_weights leaves it: the kernel reads
+    only the other entries (la/stencil.py::coupling_mask).  W:
+    (S^dim, d_out, d_in, n_b, M), any
+    strides over its first three axes, contiguous (n_b, M) planes; x:
+    (d_in, slots), y: (d_out, slots), rows contiguous.  Writes the
+    group's slots of y (no zero fill needed) with one launch on PyTorch's
+    current stream and returns y."""
+    if not x.is_cuda:
+        raise ValueError("the CUDA stencil apply takes CUDA tensors only")
+    n_b, M, d_out, d_in = check_stencil_args(W, x, y, base, gp, k)
+    fn_name, dt_name = _STENCIL_DTYPES[x.dtype]
+    g = (1,) * (3 - len(gp)) + tuple(int(n) for n in gp)
+    es = x.element_size()
+    rc = getattr(_lib(), fn_name)(
+        W.data_ptr(), W.stride(0), W.stride(1), W.stride(2),
+        x.data_ptr() + base * es, x.stride(0), y.data_ptr() + base * es,
+        y.stride(0), n_b, len(gp), *g, k, d_out, d_in,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"stencil-apply kernel launch failed: cudaError "
+                           f"{rc}")
+    key = ("stencil_apply", dt_name, n_b, tuple(int(n) for n in gp), k,
+           d_out, d_in)
+    launches[key] += 1
+    if key not in stencil_sizes:
+        m, G = stencil_geometry(gp, k)
+        stencil_sizes[key] = dict(n_b=n_b, m=m, G=G, k=k, d_out=d_out,
+                                  d_in=d_in, w_elem_bytes=W.element_size(),
+                                  x_elem_bytes=es)
+    return y

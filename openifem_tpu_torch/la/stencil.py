@@ -38,8 +38,15 @@ products (la/krylov.py `weight=`), which keeps CG/FGMRES equivalent to the
 flat solve in exact arithmetic; on hanging-node meshes `flat_matvec`
 drops into Constraints.wrap_operator unchanged.
 
-These applies are plain PyTorch: in the JAX package they are XLA ops, not
-a Pallas kernel.
+In the JAX package these applies are XLA ops, not a Pallas kernel.  Here
+`matvec` on CUDA tensors launches the hand-written stencil kernel
+(csrc/stencil_apply.cu through la/cuda_ops.py::stencil_apply), one launch
+per brick group, which writes no (S^dim, d_out, d_in, n_b, M) product;
+on CPU tensors it is `plain_matvec`, the broadcast multiply and sums, the
+kernel's twin.  The kernel reads W only where `coupling_mask` is set
+(interior slots to nodes of a common cell): `build_weights` leaves the
+rest zero.  `emulate_stencil_apply` is the kernel's own tiling in plain
+PyTorch, for the tests.
 """
 
 from __future__ import annotations
@@ -52,6 +59,17 @@ import torch
 import torch.nn.functional as F
 
 from ..config import device as _device
+from . import cuda_ops
+
+# slots a block of the stencil kernel takes (kThreads in
+# csrc/stencil_apply.cu)
+STENCIL_TILE = 128
+
+
+def _on_card(t):
+    """Whether t takes the card's route: the stencil kernel (the tests run
+    that route on the CPU by replacing this)."""
+    return t.is_cuda
 
 
 def _lex(idx, k):
@@ -487,9 +505,9 @@ class StencilOperator:
         contributions only, zero on the k-wide border rows.
 
         Accumulation happens in PHASE-MAJOR coordinates (node i = k*ci + a
-        stored at [a % k, ci + a // k]), where each of the (k+1)^(2 dim)
-        slice-adds is a contiguous slab; one strided copy interleaves the
-        phases into the bordered grid layout at the end.
+        stored at [a % k, ci + a // k]), each of the (k+1)^(2 dim)
+        slice-adds a slab of a view of W whose axes are permuted into
+        that order, so no second tensor of W's size is made.
 
         out: the tensors of an earlier build, overwritten in place (their
         borders are zero and stay so), or None for new ones."""
@@ -502,10 +520,19 @@ class StencilOperator:
                         for g in self._groups)
         for g, perm, W in zip(self._groups, self._perm, out):
             Ec = Ab[perm].reshape((g.n_b,) + g.m + (nl, d_out, nl, d_in))
-            ph_shape = (S ** dim, d_out, d_in, g.n_b)
+            # grid rows i = k*ci' + a' (ci' major) of the bordered grid:
+            # rows k .. k + k*(m+1) hold the G interior rows and k - 1
+            # border rows that no phase slot reaches (they stay zero);
+            # swapping each (ci', a') pair of axes gives the phase-major
+            # view (S^dim, d_out, d_in, n_b, k, m_0 + 1, k, m_1 + 1, ...)
+            Wg = W.reshape((S ** dim, d_out, d_in, g.n_b) + g.Gp)
+            Wg = Wg[(Ellipsis,) + tuple(slice(k, k + k * (g.m[t] + 1))
+                                        for t in range(dim))]
+            axes = [0, 1, 2, 3]
             for t in range(dim):
-                ph_shape += (k, g.m[t] + 1)
-            Wph = torch.zeros(ph_shape, dtype=Ab.dtype, device=Ab.device)
+                Wg = Wg.unflatten(4 + 2 * t, (g.m[t] + 1, k))
+                axes += [4 + 2 * t + 1, 4 + 2 * t]
+            Wph = Wg.permute(axes).zero_()
             for a in product(range(k + 1), repeat=dim):
                 l1 = _lex(a, k)
                 for a2 in product(range(k + 1), repeat=dim):
@@ -524,19 +551,6 @@ class StencilOperator:
                         ai, ao = a[t] % k, a[t] // k
                         idx += (ai, slice(ao, ao + g.m[t]))
                     Wph[idx] += blk
-            # grid rows i = k*ci' + a' (ci' major) of the bordered grid:
-            # rows k .. k + k*(m+1) hold the G interior rows and k - 1
-            # border rows that no phase slot reaches (they stay zero)
-            Wg = W.reshape((S ** dim, d_out, d_in, g.n_b) + g.Gp)
-            Wg = Wg[(Ellipsis,) + tuple(slice(k, k + k * (g.m[t] + 1))
-                                        for t in range(dim))]
-            Wg = Wg.unflatten(4, (g.m[0] + 1, k))
-            for t in range(1, dim):
-                Wg = Wg.unflatten(4 + 2 * t, (g.m[t] + 1, k))
-            axes = [0, 1, 2, 3]
-            for t in range(dim):
-                axes += [4 + 2 * t + 1, 4 + 2 * t]
-            Wg.copy_(Wph.permute(axes))
         return tuple(out)
 
     # -- apply ------------------------------------------------------------
@@ -560,27 +574,25 @@ class StencilOperator:
         """y = A x in patch layout (x flat (d_in*Np_total,), y flat
         (d_out*Np_total,); d_in/d_out from the W tensors).
 
-        The S^dim shifted windows of the guarded input are one strided
-        VIEW (window s starts at sum_t s_t * stride_t), so the whole apply
-        is one broadcast multiply and one sum per brick group."""
+        On the card one stencil-kernel launch per brick group writes y
+        (every slot, borders 0), then `combine`; elsewhere
+        `plain_matvec`."""
+        if not _on_card(x):
+            return self.plain_matvec(Ws, x)
         d_out, d_in = Ws[0].shape[1], Ws[0].shape[2]
-        dim, S = self.dim, self.S
         X = x.reshape(d_in, self.Np_total)
-        ys = []
+        Y = torch.empty((d_out, self.Np_total), dtype=x.dtype,
+                        device=x.device)
         for g, W in zip(self._groups, Ws):
-            Xg = X[:, g.base:g.base + g.n_b * g.M].reshape(
-                d_in, g.n_b, g.M)
-            Xp = F.pad(Xg, (g.F, g.F))
-            win = Xp.as_strided(
-                (d_in, g.n_b) + (S,) * dim + (g.M,),
-                (Xp.stride(0), Xp.stride(1)) + g.strides + (1,))
-            win = win.permute(tuple(range(2, 2 + dim)) + (0, 1, 2 + dim))
-            Wv = W.reshape((S,) * dim + (d_out, d_in, g.n_b, g.M))
-            # two sums over outer axes: far faster than one multi-axis
-            # reduction on the CPU, and two plain reductions on the GPU
-            y = (Wv * win.unsqueeze(dim)).reshape(
-                W.shape).sum(dim=0).sum(dim=1)
-            ys.append(y.reshape(d_out, -1))
+            cuda_ops.stencil_apply(W, X, Y, g.base, g.Gp, self.k)
+        return self.combine(Y.reshape(-1))
+
+    def plain_matvec(self, Ws, x):
+        """`matvec` in plain PyTorch on any device, the stencil kernel's
+        twin: `plain_group_apply` per brick group, then `combine`."""
+        X = x.reshape(Ws[0].shape[2], self.Np_total)
+        ys = [plain_group_apply(W, X, g, self.S, self.dim)
+              for g, W in zip(self._groups, Ws)]
         Y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
         return self.combine(Y.reshape(-1))
 
@@ -598,3 +610,101 @@ class StencilOperator:
         xz = torch.where(fixed_patch, 0.0, x)
         y = self.matvec(W, xz)
         return torch.where(fixed_patch, x, y)
+
+
+def plain_group_apply(W, X, g, S: int, dim: int):
+    """One brick group `g` of the plain apply: (d_out, n_b*M) from W
+    (S^dim, d_out, d_in, n_b, M) and the patch-layout input X (d_in,
+    Np_total).
+
+    The S^dim shifted windows of the guarded input are one strided VIEW
+    (window s starts at sum_t s_t * stride_t), so the whole apply is one
+    broadcast multiply and one sum per brick group."""
+    d_out, d_in = W.shape[1], W.shape[2]
+    Xg = X[:, g.base:g.base + g.n_b * g.M].reshape(d_in, g.n_b, g.M)
+    Xp = F.pad(Xg, (g.F, g.F))
+    win = Xp.as_strided(
+        (d_in, g.n_b) + (S,) * dim + (g.M,),
+        (Xp.stride(0), Xp.stride(1)) + g.strides + (1,))
+    win = win.permute(tuple(range(2, 2 + dim)) + (0, 1, 2 + dim))
+    Wv = W.reshape((S,) * dim + (d_out, d_in, g.n_b, g.M))
+    # two sums over outer axes: far faster than one multi-axis reduction
+    # on the CPU, and two plain reductions on the GPU
+    y = (Wv * win.unsqueeze(dim)).reshape(W.shape).sum(dim=0).sum(dim=1)
+    return y.reshape(d_out, -1)
+
+
+def _coupled(j, n: int, k: int, S: int):
+    """(len(j), S) bool: offset s - (S-1)/2 along one axis of n nodes
+    reaches, from interior node coordinate j, a node of a common degree-k
+    cell (the kernel's `coupled`)."""
+    o = torch.arange(S, device=j.device) - (S - 1) // 2
+    up = k - j % k
+    down = k - (k - j % k) % k
+    t = j[:, None] + o
+    return ((t >= 0) & (t < n)
+            & torch.where(o > 0, o <= up[:, None], -o <= down[:, None]))
+
+
+def coupling_mask(gp, k: int, device=None):
+    """(S^dim, M) bool over a brick's bordered grid `gp`: the (offset,
+    slot) pairs whose coefficients a degree-k stencil built from element
+    blocks can hold, interior slots to nodes of a common cell.  The
+    stencil kernel reads W there and nowhere else."""
+    S, dim = 2 * k + 1, len(gp)
+    out = torch.ones((1, 1), dtype=torch.bool, device=device)
+    for n in gp:
+        i = torch.arange(n, device=device)
+        ok = _coupled(i - k, n - 2 * k, k, S) & \
+            ((i >= k) & (i < n - k))[:, None]          # (n, S)
+        out = (out[:, None, :, None] & ok.T[None, :, None, :]).reshape(
+            out.shape[0] * S, -1)
+    return out
+
+
+def emulate_stencil_apply(W, x, y, base: int, gp, k: int):
+    """What cuda_ops.stencil_apply computes, in plain PyTorch on any
+    device, with the kernel's arithmetic: tiles of STENCIL_TILE
+    consecutive slots of a brick; each tile's input window [m0 - F,
+    m0 + STENCIL_TILE + F) of the brick, zero outside it; the interior
+    test and the per-axis coupling test on the slot's coordinates over
+    three axes (a 2-D grid is one plane along axis 0, with no border
+    there); per (a, c) a sum over the coupled offsets in order, then the
+    sum over c in order; 0 at border slots.  Same arguments and checks as
+    the kernel's wrapper; writes y's slots of the group and returns y."""
+    n_b, M, d_out, d_in = cuda_ops.check_stencil_args(W, x, y, base, gp, k)
+    S, dim, T = 2 * k + 1, len(gp), STENCIL_TILE
+    g0, g1, g2 = (1,) * (3 - dim) + tuple(int(n) for n in gp)
+    k0, S0 = (k, S) if dim == 3 else (0, 1)
+    st1, st0 = g2, g1 * g2
+    guard = k0 * st0 + k * st1 + k
+    n_t = -(-M // T)
+    L = T + 2 * guard
+    xb = x[:, base:base + n_b * M].reshape(d_in, n_b, M)
+    xp = F.pad(xb, (guard, n_t * T - M + guard))
+    win = xp.unfold(2, L, T).reshape(d_in, n_b, n_t * L)   # tile windows
+    m = torch.arange(M, device=x.device)
+    at = (m // T) * L + m % T                 # slot m - F in its window
+    i0 = m // st0
+    i1 = (m - i0 * st0) // st1
+    i2 = m - i0 * st0 - i1 * st1
+    inside = ((i0 >= k0) & (i0 < g0 - k0) & (i1 >= k) & (i1 < g1 - k)
+              & (i2 >= k) & (i2 < g2 - k))
+    mask0 = _coupled(i0 - k0, g0 - 2 * k0, k, S0) & inside[:, None]
+    mask1 = _coupled(i1 - k, g1 - 2 * k, k, S)
+    mask2 = _coupled(i2 - k, g2 - 2 * k, k, S)
+    acc = x.new_zeros((d_out, d_in, n_b, M))
+    for s0 in range(S0):
+        for s1 in range(S):
+            for s2 in range(S):
+                s = (s0 * S + s1) * S + s2
+                xs = win[:, :, at + (s0 * st0 + s1 * st1 + s2)]
+                read = mask0[:, s0] & mask1[:, s1] & mask2[:, s2]
+                acc = torch.where(read, acc + W[s] * xs[None], acc)
+    out = acc[:, 0]
+    for c in range(1, d_in):
+        out = out + acc[:, c]
+    y[:, base:base + n_b * M] = torch.where(
+        inside, out, torch.zeros((), dtype=out.dtype,
+                                 device=out.device)).reshape(d_out, -1)
+    return y

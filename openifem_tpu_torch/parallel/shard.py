@@ -69,6 +69,7 @@ from ..la.constraints import Constraints
 from ..la.krylov import SolveResult, cg, fgmres
 from ..la.operators import (element_diag, element_matvec,
                             element_matvec_taylor_hood)
+from ..la.stencil import plain_group_apply
 from ..solvers.fluid.base import WholeLayout
 
 # rendezvous and collective timeout of every rank's process group
@@ -939,19 +940,17 @@ class ShardedStencil:
     # -- apply ------------------------------------------------------------
     def matvec(self, W, X):
         """y = A x on (d, cx, R) chunks; W from shard_weights."""
-        k, dim, S, F = self.k, self.dim, self.S, self.F
+        k = self.k
         di = X.shape[0]
         Sd, do, _, Ml = W.shape
         from_prev, from_next = self.coll.neighbour_exchange(
             X[:, :k], X[:, -k:])
         Xb = torch.cat([from_prev, X, from_next], dim=1).reshape(di, Ml)
-        Xp = torch.nn.functional.pad(Xb, (F, F))
-        win = Xp.as_strided((di,) + (S,) * dim + (Ml,),
-                            (Xp.stride(0),) + self.strides + (1,))
-        win = win.permute(tuple(range(1, 1 + dim)) + (0, 1 + dim))
-        Wv = W.reshape((S,) * dim + (do, di, Ml))
-        y = (Wv * win.unsqueeze(dim)).reshape(Sd, do, di, Ml).sum(
-            dim=0).sum(dim=1)
+        # the replicated operator's plain apply, as one brick of Ml slots
+        g = types.SimpleNamespace(base=0, n_b=1, M=Ml, F=self.F,
+                                  strides=self.strides)
+        y = plain_group_apply(W.reshape(Sd, do, di, 1, Ml), Xb, g, self.S,
+                              self.dim)
         return y.reshape(do, self.cx + 2 * k, self.R)[:, k:-k]
 
     def condensed_matvec(self, W, fixed, X):

@@ -325,35 +325,41 @@ class InsIM(FluidSolverBase):
         n_c = gu.shape[0]
         nodes = self._u_cell_nodes
 
+        # the cells' values are gathered only for the products that read
+        # them, so that no cell-sized gather outlives its use
         ul = eval_pt[:self.n_u].reshape(-1, d)[nodes]           # (c,nlu,d)
-        p_eval = eval_pt[self.n_u:][self._p_cell_nodes]          # (c,nlp)
-        unl = present[:self.n_u].reshape(-1, d)[nodes]
-
         uc = torch.einsum("ql,cla->cqa", Nu, ul)
         guc = torch.einsum("cqlx,cla->cqax", gu, ul)
-        pc = torch.einsum("qn,cn->cq", Np, p_eval)
-        un = torch.einsum("ql,cla->cqa", Nu, unl)
+        del ul
+        pc = torch.einsum("qn,cn->cq", Np,
+                          eval_pt[self.n_u:][self._p_cell_nodes])
+        un = torch.einsum("ql,cla->cqa", Nu,
+                          present[:self.n_u].reshape(-1, d)[nodes])
         divu = torch.diagonal(guc, dim1=2, dim2=3).sum(-1)
 
         # matrix: constant part precomputed at setup; only the two
         # convection terms are linearization-dependent (built in f32 in
         # f32_matrix mode; the f64 rhs below gates Newton convergence)
         mdt = self._mdt
-        I_m = torch.eye(d, dtype=mdt, device=self.device)
         Nu_m, gu_m, JxW_m = self._Nu_m, self._gu_m, self._JxW_m
         uc_m = uc.to(mdt)
         guc_m = guc.to(mdt)
-        g_uc = torch.einsum("cqmx,cqx->cqm", gu_m, uc_m)
-        conv2 = torch.einsum("ql,cqm,cq->clm", Nu_m, g_uc, JxW_m)
-        conv = torch.einsum("clm,ab->clamb", rho * conv2, I_m)
-        # in place: the same products and sums with two of the cell-sized
-        # temporaries alive, not four
-        conv.add_(torch.einsum("ql,qm,cqab,cq->clamb", Nu_m, Nu_m, guc_m,
-                               JxW_m).mul_(rho))
-        conv = conv.reshape(n_c, self.nu_loc, self.nu_loc)
+        conv2 = rho * torch.einsum("ql,cqm,cq->clm", Nu_m, torch.einsum(
+            "cqmx,cqx->cqm", gu_m, uc_m), JxW_m)
+        # in place, one cell-sized temporary: the second term, plus the
+        # first on its (a, a) diagonals (off them the first term is 0),
+        # added into A's velocity block seen as (c, l, a, m, b)
+        conv = torch.einsum("ql,qm,cqab,cq->clamb", Nu_m, Nu_m, guc_m,
+                            JxW_m).mul_(rho)
+        for a in range(d):
+            conv[:, :, a, :, a] += conv2
         A_loc = self._A_const.clone() if out is None else \
             out.copy_(self._A_const)
-        A_loc[:, :self.nu_loc, :self.nu_loc] += conv
+        nlu = self.nu_loc // d
+        A_loc[:, :self.nu_loc, :self.nu_loc].unflatten(2, (nlu, d)) \
+            .unflatten(1, (nlu, d)).add_(conv)
+        # the matrix's temporaries go before the residual's
+        del uc_m, guc_m, conv2, conv
 
         # RHS (negative residual)
         conv_c = torch.einsum("cqax,cqx->cqa", guc, uc)

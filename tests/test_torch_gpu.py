@@ -4,7 +4,9 @@ result's max norm; the kernel sums in another order), bitwise-equal
 results from repeated launches, one counted launch and one device kernel
 per call, one plan build per table, refusal of what the kernel does not
 take, and a coarse leaflet step on CUDA equal to the same step on the
-CPU.  Needs a CUDA device, and imports no JAX, so it runs where JAX is
+CPU.  The stencil kernel likewise at the cells' brick groups, inside
+BlockGraphs, and on the cylinder's path, which never reaches the plain
+apply.  Needs a CUDA device, and imports no JAX, so it runs where JAX is
 absent (--noconftest skips tests/conftest.py, which sets JAX up):
 
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu.py
@@ -165,6 +167,23 @@ def test_one_device_kernel_per_apply(cuda, profiler, layout, dtype):
     on_device = profiler(lambda: [kern(*args) for _ in range(3)])
     assert len(on_device) == 3, on_device
     assert all("element_matvec_kernel" in n for n in on_device), on_device
+
+
+def test_stencil_kernel_is_one_device_kernel(cuda, profiler):
+    """One device kernel per group launch, no zero fill, named
+    stencil_apply and not element_matvec (the element metrics pick their
+    kernel by that substring).  Beside the element kernel's test: later
+    in a whole-file run the profiler can record no device event (see
+    test_tracer_spans_on_the_profilers_clock)."""
+    g, W, X, _ = _stencil_group(cuda, torch.float32, "cylinder_r4")
+    Y = torch.empty((W.shape[1], X.shape[1]), dtype=W.dtype, device=cuda)
+    cuda_ops.stencil_apply(W, X, Y, 0, g.Gp, 2)
+    torch.cuda.synchronize()
+    on_device = profiler(lambda: [cuda_ops.stencil_apply(W, X, Y, 0, g.Gp, 2)
+                                  for _ in range(3)])
+    assert len(on_device) == 3, on_device
+    assert all("stencil_apply" in n and "element_matvec" not in n
+               for n in on_device), on_device
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -373,6 +392,154 @@ def test_stencil_condensed_matvec_cuda_matches_cpu(cuda):
 
     g, c = _both(run)
     assert rel_err(g.cpu(), c) <= 1e-12
+
+
+# -- the stencil kernel (csrc/stencil_apply.cu): one brick group at the
+# cells' shapes, a component slice and a large 3-D brick, against
+# la/stencil.py's plain_group_apply on random coefficients with zero
+# border rows.
+# (bricks, bordered grid, k, components, component slice or None)
+STENCIL_GROUPS = {
+    "cylinder3d_r2": (832, (13, 13, 13), 2, 3, None),
+    "cylinder_r4": (92, (37, 37), 2, 2, None),
+    "coupled_q1_slice": (92, (5, 5), 1, 3, (slice(0, 2), slice(2, 3))),
+    # x's window past the kernel's shared-memory limit, so read from
+    # device memory (3-D bricks of 31^3 slots and more in f32, 22^3 in f64)
+    "lattice_3d_unstaged": (2, (33, 33, 33), 2, 3, None),
+}
+
+
+def _stencil_group(dev, dtype, name, seed=0):
+    """(group, W, X, interior mask of a brick's slots) of one brick group,
+    W random where a built stencil can hold entries (coupling_mask) and 0
+    elsewhere, a strided component view where the case names a slice."""
+    from openifem_tpu_torch.la.stencil import _Group, coupling_mask
+    n_b, gp, k, d, sl = STENCIL_GROUPS[name]
+    m = tuple((n - 2 * k - 1) // k for n in gp)
+    g = _Group(np.zeros((n_b,) + m, np.int64), k, 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inner = torch.zeros(gp, dtype=torch.bool, device=dev)
+    inner[tuple(slice(k, n - k) for n in gp)] = True
+    W = torch.randn(((2 * k + 1) ** len(gp), d, d, n_b, g.M), generator=gen,
+                    dtype=dtype, device=dev)
+    W.mul_(coupling_mask(gp, k, dev)[:, None, None, None, :])
+    if sl is not None:
+        W = W[:, sl[0], sl[1]]
+    X = torch.randn((W.shape[2], n_b * g.M), generator=gen, dtype=dtype,
+                    device=dev)
+    return g, W, X, inner.reshape(-1)
+
+
+@DTYPES
+@pytest.mark.parametrize("name", STENCIL_GROUPS)
+def test_stencil_kernel_matches_plain(cuda, name, dtype):
+    """Right at the cells' groups, on a strided component slice and on a
+    brick whose input window is read from device memory, border
+    slots exactly 0, the same bits from two launches, one counted launch
+    per call, its sizes noted in stencil_sizes and not in launch_sizes."""
+    from openifem_tpu_torch.la.stencil import plain_group_apply
+    g, W, X, inner = _stencil_group(cuda, dtype, name)
+    gp, k, dim = g.Gp, STENCIL_GROUPS[name][2], len(g.Gp)
+    Y = torch.full((W.shape[1], X.shape[1]), float("nan"), dtype=dtype,
+                   device=cuda)
+    key = ("stencil_apply", str(dtype)[6:], g.n_b, gp, k, W.shape[1],
+           W.shape[2])
+    before, sizes = cuda_ops.launches.copy(), dict(cuda_ops.launch_sizes)
+    y = cuda_ops.stencil_apply(W, X, Y, 0, gp, k).clone()
+    assert torch.equal(cuda_ops.stencil_apply(W, X, Y, 0, gp, k), y)
+    torch.cuda.synchronize()
+    assert cuda_ops.launches - before == Counter({key: 2})
+    assert cuda_ops.launch_sizes == sizes
+    assert cuda_ops.stencil_sizes[key]["n_b"] == g.n_b
+    yb = y.reshape(y.shape[0], g.n_b, g.M)
+    assert (yb[:, :, ~inner] == 0).all()
+    ref = plain_group_apply(W, X, g, 2 * k + 1, dim)
+    assert rel_err(y, ref) <= TOL[dtype]
+
+
+def test_stencil_launches_leave_the_element_metrics(cuda):
+    """Stencil launches leave cuda_ops.launch_sizes, and the readings of
+    element_matvec_roofline and element_matvec_3d_roofline, as they
+    were; stencil_roofline reads them."""
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for sub in ("port_bench", os.path.join("port_bench", "metrics")):
+        if os.path.join(root, sub) not in sys.path:
+            sys.path.insert(0, os.path.join(root, sub))
+    import element_matvec_3d_roofline
+    import element_matvec_roofline
+    import stencil_roofline
+    pr = _problem(cuda, torch.float32)
+    kern, _, args = _cases(pr)["element_matvec"]
+    g, W, X, _ = _stencil_group(cuda, torch.float32, "cylinder3d_r2")
+    Y = torch.empty((W.shape[1], X.shape[1]), dtype=W.dtype, device=cuda)
+    before = cuda_ops.launches.copy()
+    kern(*args)
+    sizes = dict(cuda_ops.launch_sizes)
+    cuda_ops.stencil_apply(W, X, Y, 0, g.Gp, 2)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_sizes == sizes
+    launched = dict(cuda_ops.launches - before)
+    element = {key: n for key, n in launched.items()
+               if key[0] != "stencil_apply"}
+    assert len(element) == 1 and len(launched) == 2
+    trace = {"by_name": {"void element_matvec_kernel<float>": 1e-3,
+                         "void stencil_apply_kernel<float, 5, 3, 3>": 2e-3}}
+    bounds = {key: (1e-4, 0) for key in element}
+
+    def ctx(launches):
+        return dict(launches=launches, launch_bounds=bounds, trace=trace)
+    for metric in (element_matvec_roofline, element_matvec_3d_roofline):
+        assert metric.read(ctx(launched)) == metric.read(ctx(element))
+    share = stencil_roofline.read(ctx(launched))
+    assert share is not None and 0 < share < 100
+    assert stencil_roofline.read(ctx(element)) is None
+
+
+def test_stencil_in_block_graphs(cuda):
+    """A stencil apply captured by BlockGraphs replays with the eager
+    launch's bits, and each replay counts its launches."""
+    from openifem_tpu_torch.la.krylov import BlockGraphs
+    from openifem_tpu_torch.la.stencil import PatchGrid, StencilOperator
+    from openifem_tpu_torch.fe.space import FESpace
+    mesh = generators.flow_around_cylinder(2).refine_global(2)
+    st = StencilOperator(PatchGrid.build(mesh), FESpace(mesh, 2), d=2,
+                         device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    Ab = torch.randn((mesh.n_cells, 9, 2, 9, 2), generator=gen,
+                     device=cuda, dtype=torch.float32)
+    Ws = st.build_weights(Ab)
+    x = torch.randn(st.n_slots, generator=gen, device=cuda,
+                    dtype=torch.float32)
+    want = st.matvec(Ws, x)
+    out = torch.empty_like(want)
+    bg = BlockGraphs()
+    before = cuda_ops.launches.copy()
+    for _ in range(3):
+        bg.run("apply", lambda: out.copy_(st.matvec(Ws, x)), cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    (key, n), = (cuda_ops.launches - before).items()
+    assert key[0] == "stencil_apply" and n == 3 * len(Ws)
+
+
+def test_cuda_stencil_never_takes_the_plain_path(cuda, monkeypatch):
+    """On CUDA tensors the stencil applies of the cylinder's r3 path (host
+    first step and a stepper step, graphs included) all launch the
+    kernel: the plain apply raises if it is reached."""
+    from openifem_tpu_torch.la import stencil
+
+    def plain(*args, **kw):
+        raise AssertionError("a CUDA stencil apply reached the plain path")
+
+    monkeypatch.setattr(stencil, "plain_group_apply", plain)
+    before = cuda_ops.launches.copy()
+    fl = _cylinder_first_step(cuda, "r3", 2)
+    stepper = fl.make_on_device_stepper()
+    stepper(fl.present_solution.clone(), 1)
+    torch.cuda.synchronize()
+    assert any(key[0] == "stencil_apply"
+               for key in cuda_ops.launches - before)
 
 
 @pytest.mark.parametrize("kind", ["pressure", "velocity_geo",
@@ -644,20 +811,23 @@ def test_stepper_replay_captures_nothing(cuda, monkeypatch):
 def test_graph_replays_count_their_launches(cuda, monkeypatch):
     """cuda_ops.launches over the build, the host first step and a
     stepper window (where the graphs are captured) and over a second
-    window that only replays them equals the element-matvec launches that
-    ran, counted on the device by an increment beside each launch
-    (captured with it into the graphs): a capture, which launches
+    window that only replays them equals the element-matvec and stencil
+    launches that ran, counted on the device by an increment beside each
+    launch (captured with it into the graphs): a capture, which launches
     nothing, adds nothing, and each replay adds its graph's launches."""
     from openifem_tpu_torch.la import cuda_ops
     from openifem_tpu_torch.utils import timer
     ran = torch.zeros((), dtype=torch.int64, device=cuda)
-    real = cuda_ops.launch
 
-    def launch(*args, **kw):
-        ran.add_(1)
-        return real(*args, **kw)
+    def counted(real):
+        def launch(*args, **kw):
+            ran.add_(1)
+            return real(*args, **kw)
+        return launch
 
-    monkeypatch.setattr(cuda_ops, "launch", launch)
+    monkeypatch.setattr(cuda_ops, "launch", counted(cuda_ops.launch))
+    monkeypatch.setattr(cuda_ops, "stencil_apply",
+                        counted(cuda_ops.stencil_apply))
     cuda_ops.reset_launches()
     fl = _cylinder_first_step(cuda, "r3", 2)
     stepper, x0 = fl.make_on_device_stepper(), fl.present_solution.clone()
@@ -857,6 +1027,8 @@ def test_supg_cuda_matches_cpu(cuda, solver, branch):
     if want[1] == "nodeblock":
         layouts |= {"element_matvec_p_to_u_nodeblock",
                     "element_matvec_u_to_p_nodeblock"}
+    if "stencil" in want[:2]:                     # the coupled stencil
+        layouts.add("stencil_apply")
     assert launched == layouts
 
 

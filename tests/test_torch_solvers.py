@@ -97,6 +97,38 @@ def test_assemble(pair):
     assert rel_err(pr, jr) <= 1e-12
 
 
+def test_assemble_convection_in_place(pair):
+    """The velocity block's convection terms, added in place with one
+    cell-sized temporary, equal their plain sum bit for bit, with a new
+    matrix and written into a buffer."""
+    _, pfsi, _ = pair
+    pfl = pfsi.fluid
+    acc, stress, acc_n = _fields(pfl, 9)
+    args = (pfl.present_solution * 1.1, pfl.present_solution, pfl.indicator,
+            torch.from_numpy(acc), torch.from_numpy(stress),
+            torch.from_numpy(acc_n))
+    A, _ = pfl._assemble(*args)
+    buf = torch.full_like(A, float("nan"))
+    A_buf, _ = pfl._assemble(*args, out=buf)
+    assert A_buf.data_ptr() == buf.data_ptr()
+    # the plain sum: both terms cell-sized, then added to A's block
+    d, rho = pfl.dim, pfl.params.fluid_rho
+    u = args[0][:pfl.n_u].reshape(-1, d)[pfl._u_cell_nodes]
+    uc = torch.einsum("ql,cla->cqa", pfl.Nu, u)
+    guc = torch.einsum("cqlx,cla->cqax", pfl.gu, u)
+    Nu, gu, JxW = pfl._Nu_m, pfl._gu_m, pfl._JxW_m
+    conv2 = torch.einsum("ql,cqm,cq->clm", Nu, torch.einsum(
+        "cqmx,cqx->cqm", gu, uc.to(Nu.dtype)), JxW)
+    conv = torch.einsum("clm,ab->clamb", rho * conv2,
+                        torch.eye(d, dtype=Nu.dtype)) + torch.einsum(
+        "ql,qm,cqab,cq->clamb", Nu, Nu, guc.to(Nu.dtype), JxW) * rho
+    ref = pfl._A_const.clone()
+    ref[:, :pfl.nu_loc, :pfl.nu_loc] += conv.reshape(
+        A.shape[0], pfl.nu_loc, pfl.nu_loc)
+    assert torch.equal(A, ref)
+    assert torch.equal(A_buf, ref)
+
+
 def test_one_newton_iteration(pair):
     jfsi, pfsi, _ = pair
     jfl, pfl = jfsi.fluid, pfsi.fluid
